@@ -1,0 +1,183 @@
+"""Config system: model architecture + run configuration.
+
+A copy of ``repro.configs.base``'s ``ModelConfig``, ``get_config`` and
+``get_reduced_config``, kept here so the port imports nothing of the JAX
+package.  Only the architectures the port serves have a module under
+``repro_torch.configs``; the shape cells and the architecture list of the
+reference wait for the slices that need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Literal
+
+Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
+BlockKind = Literal["attn", "rec"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+
+    head_dim: int = 0                  # 0 => d_model // n_heads
+    mlp: str = "swiglu"                # swiglu | relu2 | geglu | gelu
+    norm: str = "rmsnorm"              # rmsnorm | layernorm
+    rope_theta: float = 10_000.0
+    pos: str = "rope"                  # rope | learned | none
+    max_pos: int = 0                   # learned-pos table size (0 => max shape seq)
+    window: int = 0                    # sliding-window attention size; 0 = full
+    tie_embeddings: bool = False
+
+    # -- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0                  # per-expert hidden (deepseek fine-grained)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    first_k_dense: int = 0             # leading dense-FFN layers (deepseek: 1)
+    moe_impl: str = "tp"               # tp (local dispatch) | ep (all-to-all)
+    ep_remote_capacity_factor: float = 1.0  # CNA-EP: remote a2a provisioning
+    cna_routing: bool = False          # locality-aware router bias (beyond-paper)
+    cna_routing_bias: float = 0.5
+    cna_domains: int = 1               # locality domains for cna_routing
+
+    # -- hybrid (RG-LRU / Griffin) -------------------------------------------
+    block_pattern: tuple[BlockKind, ...] = ()   # cycled over layers; () => all attn
+    lru_width: int = 0
+    conv_width: int = 4
+
+    # -- SSM (Mamba-2 / SSD) ---------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
+    # -- encoder-decoder (whisper) ----------------------------------------------
+    enc_layers: int = 0
+    enc_seq: int = 0                   # stub frontend: precomputed frame embeddings
+
+    # -- VLM (pixtral) ------------------------------------------------------------
+    n_patches: int = 0                 # stub frontend: precomputed patch embeddings
+
+    # -- numerics / training -------------------------------------------------------
+    dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+    accum: int = 1                     # gradient-accumulation microbatches
+    opt_state_dtype: str = "float32"   # adam m/v dtype (bf16 for 340B-class)
+    attn_impl: str = "chunked"         # xla | chunked | triangular | pallas
+    attn_chunk: int = 1024
+    rec_impl: str = "assoc"            # assoc | pallas  (RG-LRU scan)
+    ssd_impl: str = "jnp"              # jnp | pallas    (SSD intra-chunk)
+
+    # ------------------------------------------------------------------------
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab, 256)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        return self.window > 0 or self.family in ("ssm", "hybrid")
+
+    @property
+    def blocks(self) -> tuple[BlockKind, ...]:
+        """Per-layer block kinds (cycled pattern, length n_layers)."""
+        if not self.block_pattern:
+            return ("attn",) * self.n_layers
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for roofline's
+        MODEL_FLOPS = 6*N*D."""
+        d, ff, v = self.d_model, self.d_ff, self.padded_vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_attn = d * self.n_heads * self.hd + 2 * d * self.n_kv * self.hd + self.n_heads * self.hd * d
+        if self.mlp in ("swiglu", "geglu"):
+            per_mlp = 3 * d * ff
+        else:
+            per_mlp = 2 * d * ff
+        total = emb
+        for kind in self.blocks:
+            if kind == "rec":
+                w = self.lru_width or d
+                total += 2 * d * w + w * d + w * self.conv_width + 2 * w  # rglru block
+                total += per_mlp
+                continue
+            total += per_attn
+            if self.family == "ssm":
+                pass
+            if self.n_experts:
+                eff = self.moe_d_ff or ff
+                total += self.n_experts * 3 * d * eff
+                total += self.n_shared_experts * 3 * d * eff
+                total += d * self.n_experts  # router
+            else:
+                total += per_mlp
+        if self.family == "ssm":
+            # mamba blocks instead of attn+mlp
+            di, st, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            per = d * (2 * di + 2 * st + nh) + di * d + di  # in/out proj + conv/dt
+            total = emb + self.n_layers * per
+        if self.enc_layers:
+            total += self.enc_layers * (per_attn + per_mlp)
+            total += self.n_layers * per_attn  # cross-attention
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.n_experts:
+            return self.n_params()
+        eff = self.moe_d_ff or self.d_ff
+        dense_moe = self.n_experts * 3 * self.d_model * eff
+        active_moe = (self.top_k + self.n_shared_experts) * 3 * self.d_model * eff
+        return int(self.n_params() - self.n_layers * (dense_moe - active_moe)
+                   + self.n_layers * self.n_shared_experts * 0)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# CLI ids use dashes; module names use underscores.
+def arch_module(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch_module(arch_id)}")
+    return mod.CONFIG
+
+
+def get_reduced_config(arch_id: str) -> ModelConfig:
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch_module(arch_id)}")
+    return mod.reduced()

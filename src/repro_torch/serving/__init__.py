@@ -1,0 +1,5 @@
+"""Serving layer of the port: decode engine, CNA admission, slot cache."""
+
+from .engine import DecodeEngine, Request  # noqa: F401
+from .kvcache import SlotCache  # noqa: F401
+from .scheduler import CNAScheduler, FIFOScheduler, SchedulerMetrics  # noqa: F401
