@@ -4,19 +4,28 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
-every CUDA kernel of the port from the sources in the checkout, holds each
-kernel against its plain PyTorch version on the card, serves requests
-through full-width granite-3-8b (random weights from a seed, drawn on the
-card) with ``DecodeEngine(batching=True)`` under the CNA scheduler, checks
-that the serving path went through the kernels, and checks the kernel inside
-the model against the plain attention.  Every phase passes or raises.
+every CUDA kernel of the port from the sources in the checkout (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card, and drives the port's two serving paths
+with random weights from a seed, drawn on the card:
+
+  * full-width granite-3-8b through ``DecodeEngine(batching=True)`` (packed
+    prefill; the flash kernel in every layer);
+  * full-width recurrentgemma-2b through ``DecodeEngine(batching=False)``
+    (per-request prefill; the RG-LRU scan kernel in its 18 recurrent layers,
+    the flash kernel at head dim 256 with a 2048-token window in its 8
+    attention layers; prompts past the window, so the ring wraps);
+
+both under the CNA scheduler.  Each path's launch counts are set to 0 just
+before it and read just after, and must match its prefill calls.  Then the
+kernels are checked inside each model against the plain versions.  Every
+phase passes or raises.
 
 Output: progress lines, then the card's name and power limit, one JSON line
-``{"kernels": [...]}`` with each kernel's launches on the serving path,
-error, times and bound, and as the last line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-rest of the repository beside this file, it exits non-zero and prints no
-result.
+``{"kernels": [...]}`` with each kernel's launches on its serving path,
+error, times and bound, and as the last line ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the rest of the repository
+beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -35,15 +44,18 @@ PEAK_BYTES = 3.35e12
 # allclose-style tolerances, |got - want| <= tol + tol * |want|: float32
 # against the plain version in float32; bfloat16 as tests/test_kernels.py
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# kernel vs attn_xla inside full-width granite, free-running over the first
-# MODEL_CHECK_LAYERS layers with the weights in float32: the two sum in other
-# orders (~1e-7 relative), which the model carries to ~2e-4 of the logit
-# range at this depth (a CPU run of the same comparison, the plain version
+# the scan kernel against its plain version, float32 (tests/test_recurrent.py):
+# the two run one recurrence in one order, the kernel with a fused FMA
+SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
+# kernels vs plain versions inside a full-width model, free-running over its
+# first layers with the weights in float32: the two sum in other orders
+# (~1e-7 relative), which the model carries to ~2e-4 of the logit range at
+# this depth (granite: a CPU run of the same comparison, the plain version
 # standing in for the kernel, at full width with the vocabulary cut to 4096
 # and an 860-token prompt); 2e-3 leaves room and still fails a wrong kernel,
-# whose logits decorrelate.  In bf16, or deeper, the random model is chaotic
-# (phase_model_check).
-MODEL_CHECK_LAYERS = 2
+# whose logits decorrelate.  In bf16, or deeper, the random models are
+# chaotic (phase_model_check).
+MODEL_CHECK_LAYERS = {"granite-3-8b": 2, "recurrentgemma-2b": 3}  # rg: one (rec, rec, attn)
 MODEL_TOL_FRAC = 2e-3
 
 FA_CASES = [  # b, sq, skv, h, hkv, hd, causal, window, dtype (tests/test_kernels.py)
@@ -56,6 +68,11 @@ FA_CASES = [  # b, sq, skv, h, hkv, hd, causal, window, dtype (tests/test_kernel
     (3, 96, 96, 6, 3, 48, True, 0, "float32"),
 ]
 GRANITE_ATTN = (8, 1024, 1024, 32, 8, 128, True, 0, "bfloat16")  # pack 8, largest bucket
+SCAN_RAGGED = [(3, 1, 7), (2, 300, 130), (1, 257, 129), (4, 1000, 2561)]  # (B, S, W)
+
+# the recurrentgemma-2b workload: 16 prompts of 64-3000 tokens, the first 4
+# drawn past the 2048-token window, all shuffled by numpy's default_rng(0)
+RG_REQUESTS, RG_LONG, RG_PROMPTS, RG_WINDOW = 16, 4, (64, 3001), 2048
 
 
 def log(msg: str) -> None:
@@ -97,6 +114,29 @@ def attention_bound(case) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def scan_bound(shape) -> tuple[float, str]:
+    """Least time for one linear scan: a and b read once, h0 read once, the
+    (B, S, W) float32 output written once, over the memory rate; its one
+    FMA per element is ~1e-4 of that at the float32 peak."""
+    b, s, w = shape
+    nbytes = 4 * (3 * b * s * w + b * w)
+    t_ops, t_bytes = 2.0 * b * s * w / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rg_prompt_lengths(np) -> list[int]:
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in rng.integers(RG_WINDOW + 1, RG_PROMPTS[1], RG_LONG)]
+    lens += [int(x) for x in rng.integers(*RG_PROMPTS, RG_REQUESTS - RG_LONG)]
+    rng.shuffle(lens)
+    return lens
+
+
+def _close(torch, got, want, atol, rtol) -> tuple[float, bool]:
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * want.float().abs()).all())
+
+
 def phase_device(torch) -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -113,22 +153,61 @@ def phase_build(build_mod) -> None:
     t0 = time.perf_counter()
     logs = build_mod.build()
     for name, text in logs.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"[build] {name}: {build_mod.lib_path(name).name} "
-            f"({len(regs)} kernel instances; {regs[0] if regs else 'cached'})")
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in text.splitlines()
+                if "registers" in ln]
+        spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
+                     for ln in text.splitlines() if "spill stores" in ln)
+        log(f"[build] {name}: {build_mod.lib_path(name).name} ({len(regs)} kernel instances, "
+            f"registers max {max(regs) if regs else 'cached'}, spill stores {spills} bytes)")
     log(f"[build] {time.perf_counter() - t0:.2f}s")
 
 
-def phase_kernel(torch, fa_ops, fa_ref) -> dict:
-    """The flash kernel against its plain version on the card."""
+def _time_attention(torch, fa_ops, fa_ref, case, q, k, v) -> dict:
+    """Kernel, plain version and the library yardstick on one case's inputs."""
+    import torch.nn.functional as F
+
+    b, sq, skv, h, hkv, hd, causal, window, dt = case
+    out = {
+        "ms": median_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=causal, window=window)),
+        "plain_ms": median_ms(
+            torch, lambda: fa_ref.attention_plain(q, k, v, causal=causal, window=window), reps=10),
+    }
+    # yardstick only, never called by the port: one library call on the same
+    # inputs, K/V repeated to H heads (and the band mask built) outside the
+    # timed call
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    if window > 0:
+        i = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None, :]
+        band = (j <= i) & (i - j < window)
+        out["library_ms"] = median_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band))
+    else:
+        out["library_ms"] = median_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    out["bound_ms"], out["bound_by"] = attention_bound(case)
+    return out
+
+
+def phase_flash(torch, fa_ops, fa_ref, rg_len: int) -> dict:
+    """The flash kernel against its plain version on the card, at both
+    paths' shapes; timed at each path's largest."""
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator("cuda").manual_seed(1)
+    rg_attn = (1, rg_len, rg_len, 10, 1, 256, True, RG_WINDOW, "bfloat16")
     cases = [
         GRANITE_ATTN,
         GRANITE_ATTN[:8] + ("float32",),
         (8, 777, 777, 32, 8, 128, True, 0, "bfloat16"),    # ragged S
         (8, 1024, 1024, 32, 8, 128, True, 256, "bfloat16"),  # windowed
+        rg_attn,
+        rg_attn[:8] + ("float32",),
+        (2, 2100, 2100, 10, 1, 256, True, RG_WINDOW, "bfloat16"),  # B 2, just past the window
+        (1, 555, 555, 10, 1, 256, True, RG_WINDOW, "float32"),     # inside the window, ragged
     ] + FA_CASES
+    timed = {"granite-3-8b": GRANITE_ATTN, "recurrentgemma-2b": rg_attn}
     result = {}
     for case in cases:
         b, sq, skv, h, hkv, hd, causal, window, dt = case
@@ -138,44 +217,70 @@ def phase_kernel(torch, fa_ops, fa_ref) -> dict:
         got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = fa_ref.attention_plain(q, k, v, causal=causal, window=window)
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        tol = TOL[dt]
-        ok = bool((diff <= tol + tol * want.float().abs()).all())
-        log(f"[kernel] flash_attention_fwd {case}: max_abs_err={err!r} tol={tol} "
+        err, ok = _close(torch, got, want, TOL[dt], TOL[dt])
+        log(f"[kernel] flash_attention_fwd {case}: max_abs_err={err!r} tol={TOL[dt]} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain version at {case}")
-        if case == GRANITE_ATTN:
-            result["max_abs_err"] = err
-            result["ms"] = median_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=True))
-            result["plain_ms"] = median_ms(torch, lambda: fa_ref.attention_plain(q, k, v, causal=True))
-            # yardstick only: one library call on the same inputs, K/V
-            # repeated to H heads outside the timed call
-            import torch.nn.functional as F
-
-            qt = q.transpose(1, 2)
-            kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-            vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-            result["library_ms"] = median_ms(
-                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-            result["bound_ms"], result["bound_by"] = attention_bound(case)
-            log(f"[kernel] granite shape {case}: kernel_ms={result['ms']!r} "
-                f"plain_ms={result['plain_ms']!r} library_ms={result['library_ms']!r} "
-                f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
-        del q, k, v, got, want, diff
+        for path, tcase in timed.items():
+            if case == tcase:
+                r = result[path] = {"max_abs_err": err, "shape": case,
+                                    **_time_attention(torch, fa_ops, fa_ref, case, q, k, v)}
+                log(f"[kernel] flash at the {path} shape {case}: kernel_ms={r['ms']!r} "
+                    f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
+                    f"bound_ms={r['bound_ms']!r} ({r['bound_by']})")
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return result
 
 
-class TimedPrefill:
-    """Stands in for the engine's packed-prefill call while serving: times
-    each call (synchronised) and checks the real rows' logits are finite.
-    Reads ``traces``/``calls`` through to the wrapped counter."""
+def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
+    """The scan kernel against its plain version on the card: at every
+    served prompt's shape (B 1, W 2560) and at ragged shapes, all with
+    h0 != 0; timed at the longest served prompt."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    longest = (1, max(lengths), 2560)
+    shapes = [(1, s, 2560) for s in sorted(set(lengths))] + SCAN_RAGGED
+    errs, result = [], {}
+    for shape in shapes:
+        a = 0.2 + 0.799 * torch.rand(shape, generator=gen, device="cuda")
+        b = torch.randn(shape, generator=gen, device="cuda")
+        h0 = torch.randn(shape[0], shape[2], generator=gen, device="cuda")
+        got = rg_ops.linear_scan(a, b, h0)
+        torch.cuda.synchronize()
+        want = rg_ref.linear_scan_plain(a, b, h0)
+        err, ok = _close(torch, got, want, SCAN_ATOL, SCAN_RTOL)
+        errs.append((shape, err, ok))
+        if not ok:
+            raise AssertionError(f"scan kernel disagrees with its plain version at {shape}: {err}")
+        if shape == longest:
+            result = {"max_abs_err": err, "shape": shape,
+                      "ms": median_ms(torch, lambda: rg_ops.linear_scan(a, b, h0)),
+                      "plain_ms": median_ms(torch, lambda: rg_ref.linear_scan_plain(a, b, h0),
+                                            reps=5, warmup=1),
+                      "library_ms": None}
+            result["bound_ms"], result["bound_by"] = scan_bound(shape)
+    log(f"[kernel] linear_scan vs plain at {len(shapes)} shapes (B, S, W), h0 != 0: "
+        f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SCAN_ATOL} rtol={SCAN_RTOL} "
+        f"ok={sum(ok for *_, ok in errs)}; ragged {[(s, e) for s, e, _ in errs[-len(SCAN_RAGGED):]]}")
+    log(f"[kernel] linear_scan at the recurrentgemma-2b shape {longest}: "
+        f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
+        f"(no single PyTorch call computes a linear recurrence) "
+        f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
+    torch.cuda.empty_cache()
+    return result
 
-    def __init__(self, torch, inner, vocab: int, sync):
-        self.torch, self.inner, self.vocab, self.sync = torch, inner, vocab, sync
+
+class TimedCall:
+    """Stands in for the engine's prefill call while serving: times each
+    call (synchronised), records its prompt length and checks the real
+    rows' logits are finite.  Reads ``traces``/``calls`` through to the
+    wrapped counter."""
+
+    def __init__(self, torch, inner, vocab: int, sync, packed: bool):
+        self.torch, self.inner, self.vocab, self.sync, self.packed = torch, inner, vocab, sync, packed
         self.ms: list[float] = []
+        self.lens: list[int] = []
         self.finite: list[bool] = []
 
     @property
@@ -186,14 +291,19 @@ class TimedPrefill:
     def calls(self):
         return self.inner.calls
 
-    def __call__(self, params, toks, lens):
+    def __call__(self, params, *args):
         torch = self.torch
         self.sync()
         t0 = time.perf_counter()
-        logits, cache = self.inner(params, toks, lens)
+        logits, cache = self.inner(params, *args)
         self.sync()
         self.ms.append((time.perf_counter() - t0) * 1e3)
-        real = torch.as_tensor(lens, device=logits.device) > 0
+        if self.packed:  # (tokens, lengths): rows of length 0 are dummies
+            real = torch.as_tensor(args[1], device=logits.device) > 0
+            self.lens.append(int(max(args[1])))
+        else:  # ({"tokens": (1, S)},)
+            real = slice(None)
+            self.lens.append(int(args[0]["tokens"].shape[1]))
         self.finite.append(bool(torch.isfinite(logits[real, : self.vocab]).all()))
         return logits, cache
 
@@ -209,12 +319,15 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve(torch, np, fa_ops, cfg, device, *, n_slots=8, cache_len=1024,
-                n_requests=16, prompt_lens=(64, 1000), max_new=16) -> dict:
-    """The main path: ``DecodeEngine(batching=True)`` under the CNA
-    scheduler, serving ``n_requests`` prompts.  The flash launch count is
-    set to 0 just before the engine is built (its bucket warm-up is part of
-    the path) and read just after the last request retires."""
+def phase_serve(torch, np, counters, cfg, device, *, batching, lengths, n_slots=8,
+                cache_len=1024, max_new=16) -> dict:
+    """One serving path: ``DecodeEngine(batching=...)`` under the CNA
+    scheduler.  ``lengths`` is either a list with one prompt length per
+    request, or a (low, high) range from which each of 16 requests draws
+    its length in turn with its tokens and domain.  The
+    launch counts in ``counters`` (name -> wrapper) are set to 0 just before
+    the engine is built (a packed engine's bucket warm-up is part of the
+    path) and read just after the last request retires."""
     from repro_torch.models.registry import build_model
     from repro_torch.serving import CNAScheduler, DecodeEngine, Request
 
@@ -232,23 +345,26 @@ def phase_serve(torch, np, fa_ops, cfg, device, *, n_slots=8, cache_len=1024,
         f"{time.perf_counter() - t0:.2f}s")
 
     rng = np.random.default_rng(0)
-    reqs = [
-        Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(*prompt_lens))).astype(np.int32),
-                max_new=max_new, domain=int(rng.integers(0, 2)))
-        for i in range(n_requests)
-    ]
+    reqs = []
+    for i in range(16 if isinstance(lengths, tuple) else len(lengths)):
+        n = int(rng.integers(*lengths)) if isinstance(lengths, tuple) else lengths[i]
+        reqs.append(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                            max_new=max_new, domain=int(rng.integers(0, 2))))
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    # --- the main path: counts set to 0 just before, read just after ---
-    fa_ops.flash_attention.launches = 0
+    # --- the path: counts set to 0 just before, read just after ---
+    for fn in counters.values():
+        fn.launches = 0
     t_build = time.perf_counter()
-    eng = DecodeEngine(model, params, batching=True, n_slots=n_slots, cache_len=cache_len,
+    eng = DecodeEngine(model, params, batching=batching, n_slots=n_slots, cache_len=cache_len,
                        scheduler=CNAScheduler())
     sync()
     warm_s = time.perf_counter() - t_build
-    timed = TimedPrefill(torch, eng.batcher.packed, cfg.vocab, sync)
-    eng.batcher.packed = timed
+    if batching:
+        timed = eng.batcher.packed = TimedCall(torch, eng.batcher.packed, cfg.vocab, sync, True)
+    else:
+        timed = eng._prefill = TimedCall(torch, eng._prefill, cfg.vocab, sync, False)
     submit_at = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -265,19 +381,20 @@ def phase_serve(torch, np, fa_ops, cfg, device, *, n_slots=8, cache_len=1024,
                 ttft[r.rid] = (now - submit_at) * 1e3
     sync()
     wall = time.perf_counter() - submit_at
-    launches = fa_ops.flash_attention.launches
-    # --- end of the main path ---
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # --- end of the path ---
 
-    n_buckets = len(eng.batcher.buckets)
+    warm_calls = len(eng.batcher.buckets) if batching else 0
     tokens = sum(len(r.out) for r in reqs)
     waits = np.array([ttft[r.rid] for r in reqs])
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
-    log(f"[serve] warm={warm_s:.2f}s ({n_buckets} buckets) requests={len(reqs)} "
-        f"tokens={tokens} wall_s={wall!r} tokens_per_s={tokens / wall!r} "
+    log(f"[serve] {cfg.name} batching={batching} warm={warm_s:.2f}s ({warm_calls} buckets) "
+        f"requests={len(reqs)} tokens={tokens} wall_s={wall!r} tokens_per_s={tokens / wall!r} "
         f"ttft_p50_ms={float(np.percentile(waits, 50))!r} "
         f"ttft_p99_ms={float(np.percentile(waits, 99))!r}")
-    log(f"[serve] packed prefill calls={len(timed.ms)} ms_per_call={timed.ms!r}")
-    log(f"[serve] decode-only ticks={len(tick_ms)} median_ms_per_tick="
+    log(f"[serve] {cfg.name} prefill calls={len(timed.ms)} (prompt or bucket length, ms): "
+        f"{[(n, round(ms, 3)) for n, ms in zip(timed.lens, timed.ms)]!r}")
+    log(f"[serve] {cfg.name} decode-only ticks={len(tick_ms)} median_ms_per_tick="
         f"{sorted(tick_ms)[len(tick_ms) // 2] if tick_ms else float('nan')!r} "
         f"sim_time={eng.sim_time} locality={eng.scheduler.metrics.locality!r} "
         f"switches={eng.scheduler.metrics.domain_switches} "
@@ -287,8 +404,20 @@ def phase_serve(torch, np, fa_ops, cfg, device, *, n_slots=8, cache_len=1024,
                              f"{[len(r.out) for r in reqs]}")
     if not (timed.finite and all(timed.finite)):
         raise AssertionError("a first-token logit is not finite")
-    return {"launches": launches, "packed_calls": n_buckets + len(timed.ms),
-            "model": model, "params": params, "prompt": reqs[0].prompt}
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    return {"launches": launches, "prefill_calls": warm_calls + len(timed.ms),
+            "model": model, "params": params, "prompt": longest.prompt}
+
+
+def _check_launches(cfg, served, per_call: dict) -> None:
+    """Each kernel launched once per layer of its kind in every prefill call."""
+    for name, layers in per_call.items():
+        expected = layers * served["prefill_calls"]
+        got = served["launches"][name]
+        log(f"[serve] {cfg.name} {name} launches={got} (expected {layers} layers x "
+            f"{served['prefill_calls']} prefill calls = {expected})")
+        if got != expected or expected == 0:
+            raise AssertionError(f"{cfg.name}: {name} launches {got} != {expected}")
 
 
 def _cast(tree, dtype):
@@ -305,76 +434,121 @@ def _logit_diff(cfg, got, want) -> tuple[float, float, bool]:
             int(got.argmax()) == int(want.argmax()))
 
 
-def phase_model_check(torch, cfg, served, device, fa_ref) -> None:
-    """The kernel inside the model, on one served prompt, same weights.
+class Patched:
+    """Routes the model's attention and scan calls through checking or
+    plain stand-ins while a prefill runs, and puts the originals back."""
 
-    1. Every layer of the full-depth bf16 ``prefill``: the kernel's output on
-       that layer's own q/k/v against the plain version (held, bf16
-       tolerance).
-    2. The full-depth bf16 ``prefill`` with the kernel against
-       ``cfg.replace(attn_impl="xla")`` (the plain attention), printed and
-       not held, beside a control with no kernel in it (the kernel's plain
-       version inside the model against ``attn_xla``).  With the
-       reference's init rule the random model's attention is near one-hot
-       (q/k entries of std ~11 and ~23, scores of std ~256), so a one-ulp
-       difference flips which key a head picks, and the layers decorrelate
-       the logits whichever two implementations are compared.
+    def __init__(self, tfm, rglru_mod):
+        self.tfm, self.rglru_mod = tfm, rglru_mod
+        self.attention, self.rg_ops = tfm.attention, rglru_mod.rg_ops
+
+    def prefill(self, model, params, batch, attention=None, linear_scan=None):
+        from types import SimpleNamespace
+
+        self.tfm.attention = attention or self.attention
+        if linear_scan is not None:
+            self.rglru_mod.rg_ops = SimpleNamespace(linear_scan=linear_scan)
+        try:
+            return model.prefill(params, batch)[0]
+        finally:
+            self.tfm.attention, self.rglru_mod.rg_ops = self.attention, self.rg_ops
+
+
+def phase_model_check(torch, cfg, served, device, fa_ref, rg_ref) -> None:
+    """The kernels inside the model, on the longest served prompt, same
+    weights.
+
+    1. Every layer of the full-depth bf16 ``prefill``: each kernel's output
+       on that layer's own inputs against its plain version (held): the
+       flash kernel on each ``attn`` layer's q/k/v (bf16 tolerance), the
+       scan kernel on each ``rec`` layer's (a, gated input, h0) (float32,
+       as the scan runs in float32 in a bf16 model).
+    2. The full-depth bf16 ``prefill`` with the kernels against the
+       all-plain model (``attn_impl="xla"``, the scan's plain version),
+       printed and not held, beside a control with no kernel in it (the
+       kernels' plain versions inside the model).  With the reference's init
+       rule the random models' attention is near one-hot (granite: q/k
+       entries of std ~11 and ~23, scores of std ~256; recurrentgemma's one
+       KV head gives scores of std ~800), so a one-ulp difference flips
+       which key a head picks, and the layers decorrelate the logits
+       whichever two implementations are compared.
     3. The same on the first ``MODEL_CHECK_LAYERS`` layers with the weights
        cast to float32, where rounding is too small to flip a pick:
-       last-token logits held within ``MODEL_TOL_FRAC`` of their range."""
+       last-token logits held within ``MODEL_TOL_FRAC`` of their range,
+       same argmax.  For recurrentgemma that is one (rec, rec, attn)
+       repetition, on a prompt past the window."""
+    from repro_torch.models import rglru as rglru_mod
     from repro_torch.models import transformer as tfm
     from repro_torch.models.registry import build_model
 
     model, params, prompt = served["model"], served["params"], served["prompt"]
     batch = {"tokens": prompt[None]}
-    dispatch = tfm.attention
-    errs = []
+    patch = Patched(tfm, rglru_mod)
+    attn_errs, scan_errs = [], []
 
-    def checked(q, k, v, **kw):
-        out = dispatch(q, k, v, **kw)
+    def checked_attention(q, k, v, **kw):
+        out = patch.attention(q, k, v, **kw)
         want = fa_ref.attention_plain(q, k, v, causal=kw["causal"], window=kw["window"])
-        diff = (out.float() - want.float()).abs()
-        tol = TOL[cfg.dtype]
-        errs.append((float(diff.max()), bool((diff <= tol + tol * want.float().abs()).all())))
+        attn_errs.append(_close(torch, out, want, TOL[cfg.dtype], TOL[cfg.dtype]))
         return out
 
-    def plain(q, k, v, **kw):
+    def checked_scan(a, b, h0):
+        out = patch.rg_ops.linear_scan(a, b, h0)
+        scan_errs.append(_close(torch, out, rg_ref.linear_scan_plain(a, b, h0),
+                                SCAN_ATOL, SCAN_RTOL))
+        return out
+
+    def plain_attention(q, k, v, **kw):
         return fa_ref.attention_plain(q, k, v, causal=kw["causal"], window=kw["window"])
 
-    def prefill(m, p, attention=None):
-        tfm.attention = attention or dispatch
-        try:
-            return m.prefill(p, batch)[0]
-        finally:
-            tfm.attention = dispatch
+    kinds = tfm.layer_kinds(cfg)
+    got = patch.prefill(model, params, batch, checked_attention, checked_scan)
+    for name, errs, kind in (("flash", attn_errs, "attn"), ("linear_scan", scan_errs, "rec")):
+        n = kinds.count(kind)
+        if not n:
+            continue
+        log(f"[model] {cfg.name} prompt of {len(prompt)} tokens, per layer {name} kernel vs "
+            f"plain on the layer's own inputs: max_abs_err={max(e for e, _ in errs)!r} "
+            f"layers={len(errs)} ok={sum(ok for _, ok in errs)}")
+        if len(errs) != n or not all(ok for _, ok in errs):
+            raise AssertionError(f"{name} disagrees with its plain version inside the model: {errs}")
 
-    got = prefill(model, params, checked)
-    log(f"[model] prompt of {len(prompt)} tokens, per layer kernel vs plain on the layer's "
-        f"q/k/v: max_abs_err={max(e for e, _ in errs)!r} tol={TOL[cfg.dtype]} "
-        f"layers={len(errs)} ok={sum(ok for _, ok in errs)}")
-    if len(errs) != cfg.n_layers or not all(ok for _, ok in errs):
-        raise AssertionError(f"kernel disagrees with its plain version inside the model: {errs}")
+    def all_plain(m, p):
+        return patch.prefill(m, p, batch, None, rg_ref.linear_scan_plain)
 
     xla_cfg = cfg.replace(attn_impl="xla")
-    want = prefill(build_model(xla_cfg, device=device), params)
-    control = prefill(model, params, plain)
+    want = all_plain(build_model(xla_cfg, device=device), params)
+    control = patch.prefill(model, params, batch, plain_attention, rg_ref.linear_scan_plain)
     free = _logit_diff(cfg, got, want)
     ctrl = _logit_diff(cfg, control, want)
-    log(f"[model] {cfg.n_layers} layers, last-token logits (not held): kernel vs attn_xla "
-        f"max_abs_diff={free[0]!r} same_argmax={free[2]}; control, plain version vs "
-        f"attn_xla max_abs_diff={ctrl[0]!r} same_argmax={ctrl[2]}; max|logit| {free[1]!r}")
+    log(f"[model] {cfg.name} {cfg.n_layers} layers bf16, last-token logits (not held): kernels vs "
+        f"all-plain max_abs_diff={free[0]!r} same_argmax={free[2]}; control, plain versions vs "
+        f"all-plain max_abs_diff={ctrl[0]!r} same_argmax={ctrl[2]}; max|logit| {free[1]!r}")
 
-    n = MODEL_CHECK_LAYERS
-    cut = _cast(dict(params, blocks=params["blocks"][:n]), torch.float32)
-    got = prefill(build_model(cfg.replace(n_layers=n, dtype="float32"), device=device), cut)
-    want = prefill(build_model(xla_cfg.replace(n_layers=n, dtype="float32"), device=device), cut)
+    n = MODEL_CHECK_LAYERS[cfg.name]
+    small = build_model(cfg.replace(n_layers=n, dtype="float32"), device=device)
+    # the first layers' parameters: each scanned group of the cut model takes
+    # the first repetitions of the full model's group of the same name
+    reps = {name: seg.n_rep for seg in small.segments for name in tfm.param_names(seg)}
+    cut = _cast({k: v[: reps[k]] if k in reps else v for k, v in params.items()
+                 if k in reps or isinstance(v, torch.Tensor)}, torch.float32)
+    got = patch.prefill(small, cut, batch)
+    want = all_plain(build_model(xla_cfg.replace(n_layers=n, dtype="float32"), device=device), cut)
     diff, scale, same = _logit_diff(cfg, got, want)
     tol = MODEL_TOL_FRAC * scale
-    log(f"[model] first {n} layers in float32, last-token logits kernel vs attn_xla: "
+    log(f"[model] {cfg.name} first {n} layers in float32, last-token logits kernels vs all-plain: "
         f"max_abs_diff={diff!r} tol={tol!r} (= {MODEL_TOL_FRAC} x max|logit| {scale!r}) "
         f"same_argmax={same}")
-    if not diff <= tol:
-        raise AssertionError(f"kernel and plain attention disagree inside the model: {diff} > {tol}")
+    if not (diff <= tol and same):
+        raise AssertionError(f"{cfg.name}: kernels and plain versions disagree inside the model: "
+                             f"{diff} > {tol} or another argmax")
+
+
+def _entry(name, source, replaces, launches, r) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": list(r["shape"])}
 
 
 def main() -> int:
@@ -389,36 +563,49 @@ def main() -> int:
     from repro_torch import _build
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops, ref as rg_ref
 
+    # float32 products in full float32 (the RG-LRU gates, the float32 checks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build(_build)
-    kern = phase_kernel(torch, fa_ops, fa_ref)
-    cfg = get_config("granite_3_8b")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab,
-            cfg.dtype) == (40, 4096, 32, 8, 12800, 49155, "bfloat16"), cfg
-    served = phase_serve(torch, np, fa_ops, cfg, "cuda")
-    expected = cfg.n_layers * served["packed_calls"]
-    log(f"[serve] flash launches={served['launches']} (expected {cfg.n_layers} layers x "
-        f"{served['packed_calls']} packed prefill calls = {expected})")
-    if served["launches"] != expected or expected == 0:
-        raise AssertionError(f"flash launches {served['launches']} != {expected}")
-    phase_model_check(torch, cfg, served, "cuda", fa_ref)
+    rg_lens = rg_prompt_lengths(np)
+    flash = phase_flash(torch, fa_ops, fa_ref, max(rg_lens))
+    scan = phase_scan(torch, rg_ops, rg_ref, rg_lens)
+
+    gcfg = get_config("granite_3_8b")
+    assert (gcfg.n_layers, gcfg.d_model, gcfg.n_heads, gcfg.n_kv, gcfg.d_ff, gcfg.vocab,
+            gcfg.dtype) == (40, 4096, 32, 8, 12800, 49155, "bfloat16"), gcfg
+    served = phase_serve(torch, np, {"flash": fa_ops.flash_attention}, gcfg, "cuda",
+                         batching=True, lengths=(64, 1000), cache_len=1024)
+    _check_launches(gcfg, served, {"flash": gcfg.n_layers})
+    phase_model_check(torch, gcfg, served, "cuda", fa_ref, rg_ref)
+    granite_flash = served["launches"]["flash"]
+    del served
+    torch.cuda.empty_cache()
+
+    rcfg = get_config("recurrentgemma_2b")
+    assert (rcfg.n_layers, rcfg.d_model, rcfg.n_heads, rcfg.n_kv, rcfg.hd, rcfg.d_ff, rcfg.vocab,
+            rcfg.lru_width, rcfg.window, rcfg.dtype) == (
+        26, 2560, 10, 1, 256, 7680, 256000, 2560, RG_WINDOW, "bfloat16"), rcfg
+    assert sum(n > RG_WINDOW for n in rg_lens) >= RG_LONG
+    served = phase_serve(torch, np, {"flash": fa_ops.flash_attention, "linear_scan": rg_ops.linear_scan},
+                         rcfg, "cuda", batching=False, lengths=rg_lens, cache_len=4096)
+    kinds = [k for k in rcfg.blocks]
+    _check_launches(rcfg, served, {"linear_scan": kinds.count("rec"), "flash": kinds.count("attn")})
+    phase_model_check(torch, rcfg, served, "cuda", fa_ref, rg_ref)
     log(f"[done] {time.perf_counter() - t0:.1f}s")
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:38",
-        "launches": served["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"],
-    }]
+
+    fa_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu"
+    fa_rep = "src/repro/kernels/flash_attention/kernel.py:38"
+    kernels = [
+        _entry("flash_attention_fwd", fa_src, fa_rep, granite_flash, flash["granite-3-8b"]),
+        _entry("flash_attention_fwd@recurrentgemma-2b", fa_src, fa_rep,
+               served["launches"]["flash"], flash["recurrentgemma-2b"]),
+        _entry("linear_scan", "src/repro_torch/kernels/rglru_scan/csrc/linear_scan.cu",
+               "src/repro/kernels/rglru_scan/kernel.py:31", served["launches"]["linear_scan"], scan),
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

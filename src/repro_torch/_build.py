@@ -39,6 +39,14 @@ KERNELS = {
             "flash_attention_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "linear_scan": (
+        PKG / "kernels" / "rglru_scan" / "csrc" / "linear_scan.cu",
+        {
+            # a, b, h0, out, B, S, W, stream
+            "linear_scan_fwd": ([_P, _P, _P, _P] + [_I] * 3 + [_P], _I),
+            "linear_scan_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

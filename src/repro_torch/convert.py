@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the nested dict of numpy arrays that
 ``repro.models.transformer.DecoderLM.init`` gives (``np.asarray`` on every
 leaf), checks each leaf against the port's declaration table, unstacks the
-scanned ``(L, ...)`` leaves into per-layer tensors and returns the port's
-parameter dict.  It reads numpy arrays only: it imports neither JAX nor the
-JAX package.
+scanned ``(n_rep, ...)`` leaves (``blocks``, ``cyc0``/``cyc1``/``cyc2``) into
+per-layer tensors, keeps the unrolled ``tail*`` leaves whole, and returns the
+port's parameter dict.  Each leaf takes the model dtype, except those the
+reference keeps float32 in any model (the RG-LRU's Λ).  It reads numpy
+arrays only: it imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +50,6 @@ def params_from_jax(numpy_tree: dict, cfg, device="cuda") -> dict:
     for path, arr in flat.items():
         if tuple(np.shape(arr)) != pb.shapes[path]:
             raise ValueError(f"{path}: shape {np.shape(arr)} != declared {pb.shapes[path]}")
-        t = _tensor(arr, pb.dtype, device)
+        t = _tensor(arr, pb.leaf_dtype(path), device)  # Λ stays float32
         out[path] = list(t.unbind(0)) if pb.stacked[path] else t
     return model.unstack(pb.nest(out))

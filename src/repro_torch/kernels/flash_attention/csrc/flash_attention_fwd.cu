@@ -15,12 +15,13 @@
 // (not a tile multiple) are masked here.
 //
 // Design, against what bounds it on this card.  At the main path's largest
-// shape (granite-3-8b prefill: B 8, H 32, Hkv 8, hd 128, Sq = Skv = 1024)
-// the causal work is ~68.7 GFLOP against ~168 MB of q/k/v/o, so
-// tensor-core FLOPs bound it (about 0.07 ms at 989 TFLOP/s against 0.05 ms
-// of bytes at 3.35 TB/s); at the small prompt buckets (S <= 128) the bytes
-// and the launch bound it.  This first version is the simple one: plain
-// float32 FMAs on the CUDA cores, so it runs far from the tensor-core bound.
+// shapes (granite-3-8b prefill: B 8, H 32, Hkv 8, hd 128, Sq = Skv = 1024;
+// recurrentgemma-2b prefill: B 1, H 10, Hkv 1, hd 256, window 2048, S ~3000)
+// the work is ~68.7 and ~40 GFLOP against ~168 and ~34 MB of q/k/v/o, so
+// tensor-core FLOPs bound it (about 0.07 and 0.04 ms at 989 TFLOP/s); at the
+// small prompt buckets (S <= 128) the bytes and the launch bound it.  This
+// first version is the simple one: plain float32 FMAs on the CUDA cores, so
+// it runs far from the tensor-core bound.
 // What it does about the bound is to not waste work and bytes:
 //   * one block per (b*h, 64-row q tile); the TPU's sequential kv grid axis
 //     is a loop inside the block;
@@ -28,7 +29,9 @@
 //     live (the reference visits every tile under pl.when), which halves the
 //     causal work and makes windowed work O(S * window);
 //   * K and V tiles are staged in shared memory one at a time (the V tile
-//     reuses the K tile's buffer), so two blocks fit on one SM;
+//     reuses the K tile's buffer), so two blocks fit on one SM up to hd 128
+//     (83 KB each) and one at hd 256 (148 KB: (BQ + BK)(hd + 1) + BQ(BK + 1)
+//     floats, above the 48 KB default, hence cudaFuncSetAttribute);
 //   * each K/V byte is read once per q tile; q/o once.
 // wgmma, TMA and a producer/consumer pipeline are the next step.
 //
@@ -78,8 +81,11 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restric
 }
 
 // NC = ceil(hd / 16): output columns a thread owns (d = tx + 16 * c).
+// Up to hd 128 two blocks share an SM (83 KB of shared memory each), which
+// caps a thread at 128 registers; above it one block has the SM (148 KB at
+// hd 256) and its threads may use up to 255 for the 4 x NC accumulator.
 template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, NC > 8 ? 1 : 2)
     fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, int Sq, int Skv, int H, int group, int hd, int causal,
                   int window, int sq_valid, int skv_valid, float scale) {
@@ -245,6 +251,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
     FA_CASE(6)
     FA_CASE(7)
     FA_CASE(8)
+    FA_CASE(9)
+    FA_CASE(10)
+    FA_CASE(11)
+    FA_CASE(12)
+    FA_CASE(13)
+    FA_CASE(14)
+    FA_CASE(15)
+    FA_CASE(16)
     default:
       return cudaErrorInvalidValue;
   }
@@ -259,7 +273,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int dtype, int B, int Sq, int Skv, int H, int group, int hd,
                                    int causal, int window, int sq_valid, int skv_valid,
                                    void* stream) {
-  if (hd <= 0 || hd > 128 || hd % 8 != 0 || group <= 0 || H % group != 0 || sq_valid > Sq ||
+  if (hd <= 0 || hd > 256 || hd % 8 != 0 || group <= 0 || H % group != 0 || sq_valid > Sq ||
       skv_valid > Skv || sq_valid < 0 || skv_valid < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || sq_valid == 0) return (int)cudaSuccess;

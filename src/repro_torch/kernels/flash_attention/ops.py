@@ -40,8 +40,8 @@ def flash_attention(
     skv, hkv = k.shape[1], k.shape[2]
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
-    if hd % 8 or not 0 < hd <= 128:
-        raise ValueError(f"head dim {hd} must be a multiple of 8 up to 128")
+    if hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 up to 256")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
     if not (k.device == q.device and v.device == q.device):

@@ -6,11 +6,15 @@ PyTorch counterpart of ``repro.launch.serve`` (its default run path and
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 32 --domains 2 --scheduler cna
     PYTHONPATH=src python -m repro_torch.launch.serve --arrivals 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch recurrentgemma-2b --no-batching
 
 The default path prints per-policy throughput/locality/fairness on the
-reduced config; ``--arrivals RATE`` drives a Poisson arrival process against
-the bucketed/packed engine and prints tokens/s and TTFT p50/p99 (wall
-clock, so on a card only after ``torch.cuda.synchronize``).  ``--replicas``,
+reduced config of ``--arch`` (granite-3-8b or recurrentgemma-2b) with the
+per-request engine; ``--arrivals RATE`` drives a Poisson arrival process
+against the bucketed/packed engine (``--no-batching``: the per-request one,
+which the hybrid recurrentgemma needs) and prints tokens/s and TTFT
+p50/p99 (wall clock, so on a card only after ``torch.cuda.synchronize``).  ``--replicas``,
 ``--regions``, ``--paged``, ``--derived-homes``, ``--trace`` and
 ``--metrics`` wait for the slices that port their layers.
 """

@@ -13,6 +13,9 @@ import math
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# init rules whose leaves stay float32 whatever the model dtype (the
+# reference's ``ParamBuilder.abstract``; ``ssm_a``/``dt_bias`` wait for mamba2)
+F32_INITS = ("rglru_a",)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -35,7 +38,11 @@ class ParamBuilder:
     segment in the reference: its declared shape keeps that axis (so names
     and shapes match ``repro.models.common.ParamBuilder``), and ``init``
     returns it as a list of per-layer tensors, one draw per layer, which
-    also keeps the float32 scratch of a draw to one layer's size."""
+    also keeps the float32 scratch of a draw to one layer's size.
+
+    Leaves with an init in ``F32_INITS`` stay float32 in a bf16 model, as in
+    the reference's ``abstract()``; ``leaf_dtype`` says which dtype a leaf
+    has."""
 
     def __init__(self, dtype=torch.bfloat16):
         self.dtype = dtype
@@ -49,6 +56,9 @@ class ParamBuilder:
         self.shapes[tree_path] = tuple(shape)
         self.inits[tree_path] = (init, scale)
         self.stacked[tree_path] = stack
+
+    def leaf_dtype(self, path: str) -> torch.dtype:
+        return torch.float32 if self.inits[path][0] in F32_INITS else self.dtype
 
     def _init_leaf(self, gen: torch.Generator, shape, path, device):
         kind, scale = self.inits[path]
@@ -65,6 +75,11 @@ class ParamBuilder:
             )
             x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
             return (x * s).to(self.dtype)
+        if kind == "rglru_a":
+            # Λ such that a = sigmoid(Λ) in [0.9, 0.999]
+            u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+            u = 0.9 + 0.099 * u
+            return torch.log(u / (1 - u))
         raise ValueError(f"init {kind!r} of {path} is not ported yet")
 
     @staticmethod

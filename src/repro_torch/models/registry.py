@@ -1,4 +1,7 @@
-"""Model factory (PyTorch counterpart of ``repro.models.registry``)."""
+"""Model factory (PyTorch counterpart of ``repro.models.registry``).
+
+The dense and hybrid (RG-LRU) families build ``DecoderLM``; the kinds it
+does not serve yet raise ``NotImplementedError`` there."""
 
 from __future__ import annotations
 

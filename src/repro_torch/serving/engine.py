@@ -7,7 +7,10 @@ admission goes through the bucketed, packed prefill layer: at most one
 packed prefill call per ``step()``, interleaved with running decode.
 
 Same units, counters and span names as the reference (``sim_time`` in
-scheduler ticks, ``prefill_positions`` in KV positions).  Placement, the
+scheduler ticks, ``prefill_positions`` in KV positions).  The per-request
+path (``batching=False``) serves every ported family, the hybrid RG-LRU one
+included; the packed path refuses what the model's
+``supports_packed_prefill`` refuses, with ``ValueError``.  Placement, the
 prefix index, the prefix-KV store and paging are not ported in this slice
 and raise ``NotImplementedError``.
 
@@ -246,6 +249,9 @@ class DecodeEngine:
             tok = int(nxt_host[slot])
             req.out.append(tok)
             hit_eos = self.eos is not None and tok == self.eos
+            # a sliding-window model's ring (min(cache_len, window) slots)
+            # is written at pos % ring, so it never overflows; retirement
+            # follows cache_len for every model, as in the reference
             past_len = int(pos_host[slot]) >= self.cache_len - 1
             if req.done or hit_eos or past_len:
                 req.finish_t = self.scheduler.now

@@ -8,7 +8,8 @@ tests/test_kernels.py: 2e-5 in float32, 3e-2 in bfloat16 (bf16 rounds at
 other places in the two frameworks).
 
 The tests marked ``cuda`` hold the CUDA kernel against the plain version on
-the card and skip where there is none.
+the card and skip where there is none.  JAX is imported inside the tests
+that use it, so the card's machine, which has no JAX, collects this file.
 """
 
 import numpy as np
@@ -17,9 +18,6 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models.attention import attention, attn_xla  # noqa: E402
@@ -61,6 +59,10 @@ def cuda_device():
 
 @pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
 def test_plain_matches_jax_flash_attention(case):
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+
     causal, window, dt = case[6], case[7], case[8]
     q, k, v = _inputs(case)
     want = jax_flash_attention(
@@ -88,6 +90,32 @@ def test_attention_dispatcher_on_cpu_matches_plain(case):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
     got_xla = attn_xla(tq, tk, tv, causal=causal, window=window)
     np.testing.assert_allclose(got_xla.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+# recurrentgemma's heads: hd 256, one KV head (MQA), a sliding window;
+# ragged S, and S past the window so the window cuts causal rows
+RG_CASES = [
+    # b, sq, skv, h, hkv, hd, causal, window, dtype
+    (1, 150, 150, 10, 1, 256, True, 64, "float32"),
+    (2, 97, 97, 4, 1, 256, True, 32, "bfloat16"),
+    (1, 80, 80, 2, 1, 200, True, 0, "float32"),  # hd between 128 and 256
+]
+
+
+@pytest.mark.parametrize("case", RG_CASES, ids=[str(c) for c in RG_CASES])
+def test_plain_matches_jax_reference_at_recurrentgemma_heads(case):
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    causal, window, dt = case[6], case[7], case[8]
+    q, k, v = _inputs(case, seed=2)
+    want = attention_ref(jnp.asarray(q, dt), jnp.asarray(k, dt), jnp.asarray(v, dt),
+                         causal=causal, window=window)
+    got = flash_attention(*_to_torch((q, k, v), dt), causal=causal, window=window)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), atol=TOL[dt], rtol=TOL[dt]
+    )
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
@@ -122,4 +150,17 @@ def test_kernel_matches_plain_at_granite_shape(cuda_device):
     want = attention_plain(tq, tk, tv, causal=True)
     np.testing.assert_allclose(
         got.float().cpu().numpy(), want.float().cpu().numpy(), atol=3e-2, rtol=3e-2
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RG_CASES + [(1, 3000, 3000, 10, 1, 256, True, 2048, "bfloat16")],
+                         ids=[str(c) for c in RG_CASES] + ["recurrentgemma-2b"])
+def test_kernel_matches_plain_at_recurrentgemma_heads(case, cuda_device):
+    causal, window, dt = case[6], case[7], case[8]
+    tq, tk, tv = _to_torch(_inputs(case), dt, cuda_device)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = attention_plain(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.float().cpu().numpy(), atol=TOL[dt], rtol=TOL[dt]
     )
