@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 every CUDA kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's two serving paths
+plain PyTorch version on the card, and drives the port's three serving paths
 with random weights from a seed, drawn on the card:
 
   * full-width granite-3-8b through ``DecodeEngine(batching=True)`` (packed
@@ -15,8 +15,12 @@ with random weights from a seed, drawn on the card:
     (per-request prefill; the RG-LRU scan kernel in its 18 recurrent layers,
     the flash kernel at head dim 256 with a 2048-token window in its 8
     attention layers; prompts past the window, so the ring wraps);
+  * full-width mamba2-130m through ``DecodeEngine(batching=False)``
+    (per-request prefill; the SSD intra-chunk kernel in its 24 layers;
+    prompts of 64-2000 tokens, one under a chunk and one an exact multiple
+    of it);
 
-both under the CNA scheduler.  Each path's launch counts are set to 0 just
+all under the CNA scheduler.  Each path's launch counts are set to 0 just
 before it and read just after, and must match its prefill calls.  Then the
 kernels are checked inside each model against the plain versions.  Every
 phase passes or raises.
@@ -47,6 +51,13 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # the scan kernel against its plain version, float32 (tests/test_recurrent.py):
 # the two run one recurrence in one order, the kernel with a fused FMA
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
+# the SSD kernel against its plain version, float32: the two sum over N =
+# 128 and L = 128 in other orders, and cum = cumsum(dA) falls to about -100
+# to -200 over a chunk with dA in [-1.6, 0], where one ulp (~1e-5) moves a
+# decay factor by ~1e-5 relative; the plain version in float32 against
+# float64 at the longest served shape (a CPU run) is off by up to 5.7e-4 on
+# outputs up to ~200
+SSD_ATOL, SSD_RTOL = 1e-3, 1e-4
 # kernels vs plain versions inside a full-width model, free-running over its
 # first layers with the weights in float32: the two sum in other orders
 # (~1e-7 relative), which the model carries to ~2e-4 of the logit range at
@@ -57,6 +68,13 @@ SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-4
 # chaotic (phase_model_check).
 MODEL_CHECK_LAYERS = {"granite-3-8b": 2, "recurrentgemma-2b": 3}  # rg: one (rec, rec, attn)
 MODEL_TOL_FRAC = 2e-3
+# mamba2-130m at full depth in float32, the SSD kernel against its plain
+# version: an SSM has no softmax to turn one ulp into another pick, so the
+# difference stays at rounding level through all 24 layers (a CPU run of
+# the 24-layer model at half width, d 384, on a 1000-token prompt, with the
+# intra term in float64 against float32: 4.3e-6 of the logit range); 1e-4
+# leaves room and still fails a wrong kernel
+SSM_MODEL_TOL_FRAC = 1e-4
 
 FA_CASES = [  # b, sq, skv, h, hkv, hd, causal, window, dtype (tests/test_kernels.py)
     (2, 128, 128, 4, 2, 64, True, 0, "float32"),
@@ -69,10 +87,18 @@ FA_CASES = [  # b, sq, skv, h, hkv, hd, causal, window, dtype (tests/test_kernel
 ]
 GRANITE_ATTN = (8, 1024, 1024, 32, 8, 128, True, 0, "bfloat16")  # pack 8, largest bucket
 SCAN_RAGGED = [(3, 1, 7), (2, 300, 130), (1, 257, 129), (4, 1000, 2561)]  # (B, S, W)
+# (B, nc, L, H, P, N): B 2 at the served widths, then ragged L, P and N
+SSD_RAGGED = [(2, 4, 128, 24, 64, 128), (2, 3, 100, 5, 80, 40), (3, 2, 1, 3, 16, 200),
+              (1, 5, 128, 7, 130, 33)]
 
 # the recurrentgemma-2b workload: 16 prompts of 64-3000 tokens, the first 4
 # drawn past the 2048-token window, all shuffled by numpy's default_rng(0)
 RG_REQUESTS, RG_LONG, RG_PROMPTS, RG_WINDOW = 16, 4, (64, 3001), 2048
+# the mamba2-130m workload: 16 prompts of 64-2000 tokens (its training
+# context is 2048): one under a 128-token chunk, one an exact multiple of
+# it, the longest 2000 (padded to 16 chunks), and 13 drawn by numpy's
+# default_rng(0), all shuffled
+M2_REQUESTS, M2_PROMPTS, M2_FIXED, M2_CHUNK = 16, (64, 2000), (77, 1024, 2000), 128
 
 
 def log(msg: str) -> None:
@@ -122,6 +148,34 @@ def scan_bound(shape) -> tuple[float, str]:
     nbytes = 4 * (3 * b * s * w + b * w)
     t_ops, t_bytes = 2.0 * b * s * w / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_bound(shape) -> tuple[float, str]:
+    """Least time for one SSD intra-chunk call: xc, dac, bc, cc read once and
+    the output written once over the memory rate, against the live (l >= s)
+    pairs' FLOPs with C B^T formed once per chunk (2 * N per pair) and the
+    scores applied to every head's X (2 * H * P per pair), over the float32
+    peak of the CUDA cores."""
+    b, nc, l, h, p, n = shape
+    nbytes = 4 * (2 * b * nc * l * h * p + 2 * b * nc * l * n + b * h * nc * l)
+    flops = 2.0 * (l * (l + 1) // 2) * (n + h * p) * b * nc
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def m2_prompt_lengths(np) -> list[int]:
+    rng = np.random.default_rng(0)
+    lens = list(M2_FIXED)
+    lens += [int(x) for x in rng.integers(*M2_PROMPTS, M2_REQUESTS - len(M2_FIXED))]
+    rng.shuffle(lens)
+    return lens
+
+
+def ssd_shape(s: int, cfg) -> tuple:
+    """The intra-chunk call of a prompt of ``s`` tokens: L = min(chunk, s),
+    the prompt padded to nc chunks."""
+    l = min(cfg.ssm_chunk, s)
+    return (1, -(-s // l), l, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
 
 
 def rg_prompt_lengths(np) -> list[int]:
@@ -266,6 +320,53 @@ def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
     log(f"[kernel] linear_scan at the recurrentgemma-2b shape {longest}: "
         f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
         f"(no single PyTorch call computes a linear recurrence) "
+        f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_ssd(torch, ssd_ops, ssd_ref, cfg, lengths: list[int]) -> dict:
+    """The SSD kernel against its plain version on the card, dA in [-1.6, 0]
+    (the range dt * A takes): at every served prompt's shape, and at B 2
+    and ragged shapes whose dac is a permuted view and bc/cc slices of one
+    wider tensor, as the model passes them; timed at the longest served
+    prompt."""
+    gen = torch.Generator("cuda").manual_seed(3)
+    longest = ssd_shape(max(lengths), cfg)
+    served = sorted({ssd_shape(s, cfg) for s in lengths})
+    errs, result = [], {}
+    for shape in served + SSD_RAGGED:
+        b, nc, l, h, p, n = shape
+        xc = torch.randn(b, nc, l, h, p, generator=gen, device="cuda")
+        if shape in served:
+            dac = -1.6 * torch.rand(b, h, nc, l, generator=gen, device="cuda")
+            bc = torch.randn(b, nc, l, n, generator=gen, device="cuda")
+            cc = torch.randn(b, nc, l, n, generator=gen, device="cuda")
+        else:
+            dac = (-1.6 * torch.rand(b, nc, l, h, generator=gen, device="cuda")).permute(0, 3, 1, 2)
+            bcc = torch.randn(b, nc, l, 2 * n + 3, generator=gen, device="cuda")
+            bc, cc = bcc[..., :n], bcc[..., n : 2 * n]
+        got = ssd_ops.ssd_intra(xc, dac, bc, cc)
+        torch.cuda.synchronize()
+        want = ssd_ref.ssd_intra_plain(xc, dac, bc, cc)
+        err, ok = _close(torch, got, want, SSD_ATOL, SSD_RTOL)
+        ok = ok and bool(torch.isfinite(got).all())
+        errs.append((shape, err, ok))
+        if not ok:
+            raise AssertionError(f"ssd_intra disagrees with its plain version at {shape}: {err}")
+        if shape == longest:
+            result = {"max_abs_err": err, "shape": shape,
+                      "ms": median_ms(torch, lambda: ssd_ops.ssd_intra(xc, dac, bc, cc)),
+                      "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_intra_plain(xc, dac, bc, cc),
+                                            reps=10),
+                      "library_ms": None}
+            result["bound_ms"], result["bound_by"] = ssd_bound(shape)
+    log(f"[kernel] ssd_intra vs plain at {len(errs)} shapes (B, nc, L, H, P, N), dA in [-1.6, 0]: "
+        f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SSD_ATOL} rtol={SSD_RTOL} "
+        f"ok={sum(ok for *_, ok in errs)}; per shape {[(s, e) for s, e, _ in errs]}")
+    log(f"[kernel] ssd_intra at the mamba2-130m shape {longest}: "
+        f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
+        f"(no single PyTorch call computes the masked-decay product) "
         f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
     torch.cuda.empty_cache()
     return result
@@ -544,6 +645,67 @@ def phase_model_check(torch, cfg, served, device, fa_ref, rg_ref) -> None:
                              f"{diff} > {tol} or another argmax")
 
 
+def phase_ssm_model_check(torch, cfg, served, device, ssd_ref) -> None:
+    """The SSD kernel inside mamba2-130m, on the longest served prompt, same
+    weights.
+
+    1. Every layer of the full-depth bf16 ``prefill``: the kernel's output on
+       that layer's own (xc, dac, bc, cc) against its plain version (held,
+       float32: the intra term runs in float32 in a bf16 model).
+    2. The full-depth bf16 ``prefill`` with the kernel against the same model
+       with the plain version (printed, not held: bf16 rounds the layers'
+       outputs, so the two drift apart by bf16 ulps).
+    3. The same at full depth with the weights cast to float32: last-token
+       logits held within ``SSM_MODEL_TOL_FRAC`` of their range, same
+       argmax."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.registry import build_model
+
+    model, params, prompt = served["model"], served["params"], served["prompt"]
+    batch = {"tokens": prompt[None]}
+    kernel = ssm_mod.ssd_ops
+    errs = []
+
+    def run(m, p, intra):
+        ssm_mod.ssd_ops = SimpleNamespace(ssd_intra=intra)
+        try:
+            return m.prefill(p, batch)[0]
+        finally:
+            ssm_mod.ssd_ops = kernel
+
+    def checked(xc, dac, bc, cc):
+        out = kernel.ssd_intra(xc, dac, bc, cc)
+        errs.append(_close(torch, out, ssd_ref.ssd_intra_plain(xc, dac, bc, cc), SSD_ATOL, SSD_RTOL))
+        return out
+
+    got = run(model, params, checked)
+    log(f"[model] {cfg.name} prompt of {len(prompt)} tokens, per layer ssd_intra kernel vs plain "
+        f"on the layer's own inputs: max_abs_err={max(e for e, _ in errs)!r} layers={len(errs)} "
+        f"ok={sum(ok for _, ok in errs)}")
+    if len(errs) != cfg.n_layers or not all(ok for _, ok in errs):
+        raise AssertionError(f"ssd_intra disagrees with its plain version inside the model: {errs}")
+
+    want = run(model, params, ssd_ref.ssd_intra_plain)
+    free = _logit_diff(cfg, got, want)
+    log(f"[model] {cfg.name} {cfg.n_layers} layers bf16, last-token logits (not held): kernel vs "
+        f"plain max_abs_diff={free[0]!r} same_argmax={free[2]} max|logit| {free[1]!r}")
+
+    m32 = build_model(cfg.replace(dtype="float32"), device=device)
+    p32 = _cast(params, torch.float32)
+    got = run(m32, p32, kernel.ssd_intra)
+    want = run(m32, p32, ssd_ref.ssd_intra_plain)
+    diff, scale, same = _logit_diff(cfg, got, want)
+    tol = SSM_MODEL_TOL_FRAC * scale
+    log(f"[model] {cfg.name} {cfg.n_layers} layers in float32, last-token logits kernel vs plain: "
+        f"max_abs_diff={diff!r} tol={tol!r} (= {SSM_MODEL_TOL_FRAC} x max|logit| {scale!r}) "
+        f"same_argmax={same}")
+    if not (diff <= tol and same):
+        raise AssertionError(f"{cfg.name}: kernel and plain version disagree inside the model: "
+                             f"{diff} > {tol} or another argmax")
+
+
 def _entry(name, source, replaces, launches, r) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -564,8 +726,10 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.rglru_scan import ops as rg_ops, ref as rg_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 
-    # float32 products in full float32 (the RG-LRU gates, the float32 checks)
+    # float32 products in full float32 (the RG-LRU gates, the SSD chunk
+    # states, the float32 checks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -573,6 +737,15 @@ def main() -> int:
     rg_lens = rg_prompt_lengths(np)
     flash = phase_flash(torch, fa_ops, fa_ref, max(rg_lens))
     scan = phase_scan(torch, rg_ops, rg_ref, rg_lens)
+    mcfg = get_config("mamba2_130m")
+    assert (mcfg.n_layers, mcfg.d_model, mcfg.vocab, mcfg.ssm_state, mcfg.d_inner,
+            mcfg.ssm_head_dim, mcfg.ssm_heads, mcfg.ssm_chunk, mcfg.conv_width, mcfg.dtype) == (
+        24, 768, 50280, 128, 1536, 64, 24, M2_CHUNK, 4, "bfloat16"), mcfg
+    m2_lens = m2_prompt_lengths(np)
+    assert max(m2_lens) == 2000 and any(s < M2_CHUNK for s in m2_lens)
+    assert any(s % M2_CHUNK == 0 for s in m2_lens)
+    ssd = phase_ssd(torch, ssd_ops, ssd_ref, mcfg, m2_lens)
+    log(f"[time] kernels checked at {time.perf_counter() - t0:.1f}s")
 
     gcfg = get_config("granite_3_8b")
     assert (gcfg.n_layers, gcfg.d_model, gcfg.n_heads, gcfg.n_kv, gcfg.d_ff, gcfg.vocab,
@@ -584,6 +757,7 @@ def main() -> int:
     granite_flash = served["launches"]["flash"]
     del served
     torch.cuda.empty_cache()
+    log(f"[time] granite-3-8b done at {time.perf_counter() - t0:.1f}s")
 
     rcfg = get_config("recurrentgemma_2b")
     assert (rcfg.n_layers, rcfg.d_model, rcfg.n_heads, rcfg.n_kv, rcfg.hd, rcfg.d_ff, rcfg.vocab,
@@ -595,6 +769,17 @@ def main() -> int:
     kinds = [k for k in rcfg.blocks]
     _check_launches(rcfg, served, {"linear_scan": kinds.count("rec"), "flash": kinds.count("attn")})
     phase_model_check(torch, rcfg, served, "cuda", fa_ref, rg_ref)
+    rg_launches = served["launches"]
+    del served
+    torch.cuda.empty_cache()
+    log(f"[time] recurrentgemma-2b done at {time.perf_counter() - t0:.1f}s")
+
+    served = phase_serve(torch, np, {"ssd_intra": ssd_ops.ssd_intra}, mcfg, "cuda",
+                         batching=False, lengths=m2_lens, cache_len=2048)
+    _check_launches(mcfg, served, {"ssd_intra": mcfg.n_layers})
+    phase_ssm_model_check(torch, mcfg, served, "cuda", ssd_ref)
+    m2_launches = served["launches"]
+    del served
     log(f"[done] {time.perf_counter() - t0:.1f}s")
 
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu"
@@ -602,9 +787,11 @@ def main() -> int:
     kernels = [
         _entry("flash_attention_fwd", fa_src, fa_rep, granite_flash, flash["granite-3-8b"]),
         _entry("flash_attention_fwd@recurrentgemma-2b", fa_src, fa_rep,
-               served["launches"]["flash"], flash["recurrentgemma-2b"]),
+               rg_launches["flash"], flash["recurrentgemma-2b"]),
         _entry("linear_scan", "src/repro_torch/kernels/rglru_scan/csrc/linear_scan.cu",
-               "src/repro/kernels/rglru_scan/kernel.py:31", served["launches"]["linear_scan"], scan),
+               "src/repro/kernels/rglru_scan/kernel.py:31", rg_launches["linear_scan"], scan),
+        _entry("ssd_intra", "src/repro_torch/kernels/ssd_scan/csrc/ssd_intra.cu",
+               "src/repro/kernels/ssd_scan/kernel.py:24", m2_launches["ssd_intra"], ssd),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

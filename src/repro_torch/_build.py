@@ -28,7 +28,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> (source, {C function: (argtypes, restype)})
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "flash_attention_fwd": (
         PKG / "kernels" / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
@@ -45,6 +45,15 @@ KERNELS = {
             # a, b, h0, out, B, S, W, stream
             "linear_scan_fwd": ([_P, _P, _P, _P] + [_I] * 3 + [_P], _I),
             "linear_scan_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
+    "ssd_intra": (
+        PKG / "kernels" / "ssd_scan" / "csrc" / "ssd_intra.cu",
+        {
+            # xc, dac, bc, cc, out, B, nc, L, H, P, N, the strides of xc
+            # (4), dac (4), bc (3), cc (3) in elements, stream
+            "ssd_intra_fwd": ([_P] * 5 + [_I] * 6 + [_L] * 14 + [_P], _I),
+            "ssd_intra_error_string": ([_I], ctypes.c_char_p),
         },
     ),
 }

@@ -6,7 +6,8 @@ leaf), checks each leaf against the port's declaration table, unstacks the
 scanned ``(n_rep, ...)`` leaves (``blocks``, ``cyc0``/``cyc1``/``cyc2``) into
 per-layer tensors, keeps the unrolled ``tail*`` leaves whole, and returns the
 port's parameter dict.  Each leaf takes the model dtype, except those the
-reference keeps float32 in any model (the RG-LRU's Λ).  It reads numpy
+reference keeps float32 in any model (the RG-LRU's Λ, the SSD's a_log and
+dt_bias).  It reads numpy
 arrays only: it imports neither JAX nor the JAX package.
 """
 
@@ -50,6 +51,6 @@ def params_from_jax(numpy_tree: dict, cfg, device="cuda") -> dict:
     for path, arr in flat.items():
         if tuple(np.shape(arr)) != pb.shapes[path]:
             raise ValueError(f"{path}: shape {np.shape(arr)} != declared {pb.shapes[path]}")
-        t = _tensor(arr, pb.leaf_dtype(path), device)  # Λ stays float32
+        t = _tensor(arr, pb.leaf_dtype(path), device)  # Λ, a_log, dt_bias stay float32
         out[path] = list(t.unbind(0)) if pb.stacked[path] else t
     return model.unstack(pb.nest(out))

@@ -8,13 +8,16 @@ PyTorch counterpart of ``repro.launch.serve`` (its default run path and
     PYTHONPATH=src python -m repro_torch.launch.serve --arrivals 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch recurrentgemma-2b --no-batching
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-130m --no-batching
 
 The default path prints per-policy throughput/locality/fairness on the
-reduced config of ``--arch`` (granite-3-8b or recurrentgemma-2b) with the
-per-request engine; ``--arrivals RATE`` drives a Poisson arrival process
-against the bucketed/packed engine (``--no-batching``: the per-request one,
-which the hybrid recurrentgemma needs) and prints tokens/s and TTFT
-p50/p99 (wall clock, so on a card only after ``torch.cuda.synchronize``).  ``--replicas``,
+reduced config of ``--arch`` (granite-3-8b, recurrentgemma-2b or
+mamba2-130m) with the per-request engine; ``--arrivals RATE`` drives a
+Poisson arrival process against the bucketed/packed engine
+(``--no-batching``: the per-request one, which recurrentgemma and mamba2
+need) and prints tokens/s and TTFT p50/p99 (wall clock, so on a card only
+after ``torch.cuda.synchronize``).  ``--replicas``,
 ``--regions``, ``--paged``, ``--derived-homes``, ``--trace`` and
 ``--metrics`` wait for the slices that port their layers.
 """

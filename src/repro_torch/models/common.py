@@ -14,8 +14,8 @@ import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # init rules whose leaves stay float32 whatever the model dtype (the
-# reference's ``ParamBuilder.abstract``; ``ssm_a``/``dt_bias`` wait for mamba2)
-F32_INITS = ("rglru_a",)
+# reference's ``ParamBuilder.abstract``)
+F32_INITS = ("rglru_a", "ssm_a", "dt_bias")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -80,6 +80,15 @@ class ParamBuilder:
             u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
             u = 0.9 + 0.099 * u
             return torch.log(u / (1 - u))
+        if kind == "ssm_a":
+            # log A for A uniform in [1, 16] (the block uses -exp(a_log))
+            u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+            return torch.log(1.0 + 15.0 * u)
+        if kind == "dt_bias":
+            # inverse softplus of dt, log-uniform in [0.001, 0.1]
+            u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+            dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+            return dt + torch.log(-torch.expm1(-dt))
         raise ValueError(f"init {kind!r} of {path} is not ported yet")
 
     @staticmethod

@@ -1,6 +1,6 @@
 """Model factory (PyTorch counterpart of ``repro.models.registry``).
 
-The dense and hybrid (RG-LRU) families build ``DecoderLM``; the kinds it
+The dense, hybrid (RG-LRU) and SSM (Mamba-2) families build ``DecoderLM``; the kinds it
 does not serve yet raise ``NotImplementedError`` there."""
 
 from __future__ import annotations

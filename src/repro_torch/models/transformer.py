@@ -1,4 +1,4 @@
-"""Decoder-LM assembly: the dense ``attn`` and hybrid (RG-LRU) families.
+"""Decoder-LM assembly: the dense ``attn``, hybrid (RG-LRU) and SSM (Mamba-2) families.
 
 PyTorch counterpart of ``repro.models.transformer``.  The layer stack is
 the reference's list of segments (``build_segments``):
@@ -14,11 +14,13 @@ compare leaf for leaf: a uniform stack is one ``"blocks"`` segment
 (``{"blocks": ((k, v),), "pos"}``, k/v (L, B, S, Hkv, hd)); recurrentgemma
 is ``{"cyc": ((h, conv), (h, conv), (k, v)), "tail24": (h, conv),
 "tail25": (h, conv), "pos"}`` with the ``cyc`` leaves stacked over its
-repetitions.  Sliding-window attention keeps a ring of ``window`` slots
-(token i in slot i % window); a recurrent block keeps h (B, W) in float32
-and the conv tail (B, K-1, W).
+repetitions; mamba2 is ``{"blocks": ((s, conv),), "pos"}``.  Sliding-window
+attention keeps a ring of ``window`` slots (token i in slot i % window); a
+recurrent block keeps h (B, W) in float32 and the conv tail (B, K-1, W); an
+SSD block keeps its state (B, H, P, N) in float32 and the conv tail
+(B, K-1, d_inner + 2N).
 
-Block kinds ported: ``attn`` and ``rec``.  ``ssd`` and ``moe``,
+Block kinds ported: ``attn``, ``rec`` and ``ssd``.  ``moe``,
 cross-attention and patch prefixes raise ``NotImplementedError``, and so
 does continuation prefill (``prefill_cont``), which waits for the prefix-KV
 store.
@@ -34,8 +36,9 @@ from .attention import NEG_INF, attention, attn_decode
 from .common import DTYPES, ParamBuilder, apply_rope, embed_lookup, norm, rope_angles
 from .mlp import declare_mlp, mlp_apply
 from .rglru import declare_rglru, rglru_block, rglru_block_step
+from .ssm import declare_ssd, ssd_block, ssd_block_step
 
-PORTED_KINDS = ("attn", "rec")
+PORTED_KINDS = ("attn", "rec", "ssd")
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +134,9 @@ def declare_block(pb: ParamBuilder, prefix: str, cfg, kind: str, stack: int = 0)
         pb.declare(f"{prefix}/wo", lead + (h, hd, d), stack=st)
     elif kind == "rec":
         declare_rglru(pb, f"{prefix}/rec", d, cfg.lru_width or d, cfg.conv_width, stack)
+    elif kind == "ssd":  # the Mamba-2 block is the whole layer: no ln2, no MLP
+        declare_ssd(pb, f"{prefix}/ssd", cfg, stack)
+        return
     else:
         raise ValueError(kind)
     decl_norm("ln2")
@@ -210,7 +216,10 @@ def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
 def block_full(params, x, cfg, kind, rope_cs, *, causal=True):
     """Full-sequence block.  Returns (x, state): the raw (k, v) of an
     ``attn`` block (the caller lays them out), (h_last, conv_tail) of a
-    ``rec`` block."""
+    ``rec`` block, (s_last, conv_tail) of an ``ssd`` block."""
+    if kind == "ssd":
+        y, state = ssd_block(params["ssd"], _norm(params, "ln1", x, cfg), cfg)
+        return x + y, state
     if kind == "attn":
         x, state = _attn_full(params, x, cfg, rope_cs, causal=causal)
     elif kind == "rec":
@@ -225,7 +234,11 @@ def block_full(params, x, cfg, kind, rope_cs, *, causal=True):
 
 def block_step(params, x_t, cfg, kind, pos, cache):
     """One-token decode block.  Returns (x_t, new state): the new token's
-    (k, v) for ``attn``, the next (h, conv) for ``rec``."""
+    (k, v) for ``attn``, the next (h, conv) for ``rec``, the next (s, conv)
+    for ``ssd``."""
+    if kind == "ssd":
+        y, new = ssd_block_step(params["ssd"], _norm(params, "ln1", x_t, cfg), cache, cfg)
+        return x_t + y, new
     if kind == "attn":
         x_t, new = _attn_step(params, x_t, cfg, pos, cache, ring=cfg.window > 0)
     elif kind == "rec":
@@ -252,6 +265,10 @@ def block_cache_shape(cfg, kind: str, batch: int, cache_len: int):
     if kind == "rec":
         w = cfg.lru_width or cfg.d_model
         return (((batch, w), torch.float32), ((batch, cfg.conv_width - 1, w), cdt))
+    if kind == "ssd":
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        state = (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        return ((state, torch.float32), ((batch, cfg.conv_width - 1, conv_ch), cdt))
     raise ValueError(kind)
 
 
@@ -263,6 +280,8 @@ def block_cache_logical(kind: str, stacked: bool):
         base = (("batch", "kv_seq", "kv_heads", None),) * 2
     elif kind == "rec":
         base = (("batch", "mlp"), ("batch", None, "mlp"))
+    elif kind == "ssd":
+        base = (("batch", None, None, None), ("batch", None, "mlp"))
     else:
         raise ValueError(kind)
     return tuple(("layers",) + b if stacked else b for b in base)
@@ -382,7 +401,7 @@ class DecoderLM:
         """All layers over x (B, S, D).  Each block's state lands in its
         segment's preallocated cache: attention K/V at positions 0..S-1 of an
         (S + headroom)-long cache, or in ring layout for a windowed model;
-        recurrent (h, conv) whole.  A stack costs no extra copy."""
+        recurrent (h, conv) and SSD (s, conv) whole.  A stack costs no extra copy."""
         cfg = self.cfg
         b, s = x.shape[:2]
         rope_cs = self._rope(s)

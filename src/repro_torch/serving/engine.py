@@ -8,8 +8,8 @@ packed prefill call per ``step()``, interleaved with running decode.
 
 Same units, counters and span names as the reference (``sim_time`` in
 scheduler ticks, ``prefill_positions`` in KV positions).  The per-request
-path (``batching=False``) serves every ported family, the hybrid RG-LRU one
-included; the packed path refuses what the model's
+path (``batching=False``) serves every ported family, the hybrid RG-LRU
+and SSM ones included; the packed path refuses what the model's
 ``supports_packed_prefill`` refuses, with ``ValueError``.  Placement, the
 prefix index, the prefix-KV store and paging are not ported in this slice
 and raise ``NotImplementedError``.

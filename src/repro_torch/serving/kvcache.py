@@ -5,13 +5,14 @@ topology (NUMA-homed placement waits for its slice).  The engine owns one
 cache with a slot (decode-batch) axis, and ``pos`` is (n_slots,).  Each
 leaf's batch axis and kind come from the model's ``cache_logical`` tree, as
 in the reference: stacked attention KV (L, B, S, kv, hd), unrolled KV
-(B, S, kv, hd), RG-LRU state (L?, B, W) and conv tails (L?, B, K-1, W).
+(B, S, kv, hd), RG-LRU state (L?, B, W), SSD state (L?, B, H, P, N) and
+conv tails (L?, B, K-1, C).
 Only attention KV is fitted along its sequence axis (trimmed or
 zero-padded to this cache's length); state leaves are copied whole.
 
 The logical tree is built from the segment structure, not from leaf ranks:
-the reference's rank rules give a stacked (L, B, W) state the batch axis 0
-(ROADMAP §C).
+the reference's rank rules give a stacked (L, B, W) state and a stacked
+(L, B, K-1, C) mamba2 conv tail the batch axis 0 (ROADMAP §C).
 
 Where the reference builds new arrays, this one writes the claimed lane IN
 PLACE (``copy_``), and ``extract`` returns a copy, so a stashed lane never

@@ -1,4 +1,4 @@
-"""The RG-LRU scan kernel against its plain version on the card.
+"""The RG-LRU scan and SSD intra-chunk kernels against their plain versions on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so the card's machine,
@@ -6,10 +6,17 @@ which has no JAX, collects it:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py tests/test_torch_flash_attention.py
 
-Inputs come from numpy with a seed.  Tolerance atol 1e-5, rtol 1e-4 in
-float32, as tests/test_torch_rglru.py holds the plain version against the
-reference (the kernel and the plain version run the same recurrence in the
-same order, so they differ only where the compiler fuses the FMA).
+Inputs come from numpy with a seed.  Tolerances, float32:
+  * the scan: atol 1e-5, rtol 1e-4, as tests/test_torch_rglru.py holds the
+    plain version against the reference (the kernel and the plain version
+    run the same recurrence in the same order, so they differ only where
+    the compiler fuses the FMA);
+  * the SSD intra-chunk term: atol 1e-3, rtol 1e-4.  The two sum over N and
+    L in other orders, and cum = cumsum(dA) reaches about -100 to -200 over
+    a 128-step chunk with dA in [-1.6, 0], where one ulp (~1e-5) moves a
+    decay factor by ~1e-5 relative; the plain version in float32 against
+    float64 at mamba2-130m's shape (a CPU run) is off by up to 5.7e-4 on
+    outputs up to ~200.
 """
 
 import numpy as np
@@ -18,8 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro_torch.configs import get_reduced_config  # noqa: E402
 from repro_torch.kernels.rglru_scan import linear_scan, linear_scan_plain  # noqa: E402
-from repro_torch.models import rglru  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402
+from repro_torch.models import rglru, ssm  # noqa: E402
+from repro_torch.models.common import ParamBuilder  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
 SCAN_SHAPES = [  # (B, S, W): ragged S and W; the last is recurrentgemma-2b's longest prefill
@@ -31,10 +41,19 @@ SCAN_SHAPES = [  # (B, S, W): ragged S and W; the last is recurrentgemma-2b's lo
 ]
 
 
+SSD_ATOL, SSD_RTOL = 1e-3, 1e-4
+SSD_SHAPES = [  # (B, nc, L, H, P, N): mamba2-130m's longest prompt (2000 -> 16 x 128),
+    (1, 16, 128, 24, 64, 128),  # a prompt under one chunk, then ragged L, P, N
+    (1, 1, 77, 24, 64, 128),
+    (2, 3, 100, 5, 80, 40),
+    (3, 2, 1, 3, 16, 200),
+]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the scan kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
 
 
@@ -74,3 +93,51 @@ def test_rglru_scan_launches_the_kernel_on_card(cuda_device):
     assert linear_scan.launches == before + 1
     assert y.dtype == torch.bfloat16 and h_last.dtype == torch.float32
     assert bool(torch.isfinite(h_last).all())
+
+
+def _ssd_inputs(shape, device, seed=0):
+    """xc contiguous; dac a permuted view and bc/cc slices of one wider
+    tensor, as ``ssm.ssd_chunked`` passes them (the kernel reads strides)."""
+    b, nc, l, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    xc = rng.standard_normal((b, nc, l, h, p), dtype=np.float32)
+    da = rng.uniform(-1.6, 0.0, (b, nc, l, h)).astype(np.float32)
+    bcc = rng.standard_normal((b, nc, l, 2 * n + 3), dtype=np.float32)
+    xc, da, bcc = (torch.from_numpy(t).to(device) for t in (xc, da, bcc))
+    return xc, da.permute(0, 3, 1, 2), bcc[..., :n], bcc[..., n : 2 * n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=[str(s) for s in SSD_SHAPES])
+def test_ssd_intra_kernel_matches_plain_on_card(shape, cuda_device):
+    xc, dac, bc, cc = _ssd_inputs(shape, cuda_device)
+    assert not dac.is_contiguous() and not bc.is_contiguous()
+    before = ssd_intra.launches
+    got = ssd_intra(xc, dac, bc, cc)
+    torch.cuda.synchronize()
+    assert ssd_intra.launches == before + 1
+    want = ssd_intra_plain(xc, dac, bc, cc)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.cuda
+def test_ssd_block_launches_the_kernel_on_card(cuda_device):
+    """The model's ``ssd_block`` on a CUDA tensor goes through the kernel,
+    once per call, and agrees with the same block on the CPU (the plain
+    version) in float32."""
+    cfg = get_reduced_config("mamba2_130m").replace(dtype="float32")
+    pb = ParamBuilder(dtype=torch.float32)
+    ssm.declare_ssd(pb, "ssd", cfg)
+    params = pb.init(torch.Generator().manual_seed(0), "cpu")["ssd"]
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 45, cfg.d_model),
+                                                                  dtype=np.float32))
+    want, (ws, _) = ssm.ssd_block(params, x, cfg)
+    before = ssd_intra.launches
+    got, (gs, _) = ssm.ssd_block({k: v.to(cuda_device) for k, v in params.items()},
+                                 x.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert ssd_intra.launches == before + 1
+    assert gs.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=SSD_ATOL, rtol=SSD_RTOL)
+    np.testing.assert_allclose(gs.cpu().numpy(), ws.numpy(), atol=SSD_ATOL, rtol=SSD_RTOL)

@@ -187,7 +187,7 @@ def test_supports_packed_prefill_gate_matches_reference():
 
 def test_unported_kinds_and_default_device_raise():
     with pytest.raises(NotImplementedError):
-        build_model(get_reduced_config("granite_3_8b").replace(family="ssm"), device="cpu")
+        build_model(get_reduced_config("granite_3_8b").replace(n_patches=4), device="cpu")
     with pytest.raises(NotImplementedError):
         build_model(get_reduced_config("granite_3_8b").replace(n_experts=4, top_k=2), device="cpu")
     if not torch.cuda.is_available():
