@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 every CUDA kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's three serving paths
+plain PyTorch version on the card (the flash kernel also at the edges of its
+bf16 tensor-core instances: padded head dims, single and ragged rows, Sq !=
+Skv, a window under one kv tile), and drives the port's three serving paths
 with random weights from a seed, drawn on the card:
 
   * full-width granite-3-8b through ``DecodeEngine(batching=True)`` (packed
@@ -27,7 +29,8 @@ phase passes or raises.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with each kernel's launches on its serving path,
-error, times and bound, and as the last line ``{"ok": true, "device":
+error, times, bound, achieved TFLOP/s and time over bound, and as the last
+line ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the rest of the repository
 beside this file, it exits non-zero and prints no result.
 """
@@ -86,6 +89,22 @@ FA_CASES = [  # b, sq, skv, h, hkv, hd, causal, window, dtype (tests/test_kernel
     (3, 96, 96, 6, 3, 48, True, 0, "float32"),
 ]
 GRANITE_ATTN = (8, 1024, 1024, 32, 8, 128, True, 0, "bfloat16")  # pack 8, largest bucket
+# the bf16 tensor-core kernel's edges (tests/test_torch_flash_attention.py)
+FA_BF16_EDGES = [
+    (2, 130, 130, 4, 2, 72, True, 0, "bfloat16"),      # hd padded to 128 in shared memory
+    (1, 300, 300, 3, 1, 200, True, 64, "bfloat16"),    # hd padded to 256, windowed
+    (2, 200, 200, 4, 4, 64, True, 0, "bfloat16"),      # hd 64, no window
+    (1, 333, 333, 4, 1, 256, True, 0, "bfloat16"),     # hd 256, no window
+    (3, 1, 1, 4, 2, 128, True, 0, "bfloat16"),         # one row
+    (2, 65, 65, 4, 1, 256, True, 0, "bfloat16"),       # one past a tile
+    (2, 777, 777, 4, 2, 128, True, 0, "bfloat16"),
+    (2, 65, 777, 4, 2, 128, False, 0, "bfloat16"),     # Sq != Skv, not causal
+    (1, 777, 65, 2, 1, 256, False, 0, "bfloat16"),
+    (2, 1, 777, 8, 2, 128, False, 0, "bfloat16"),
+    (2, 256, 256, 4, 2, 128, True, 16, "bfloat16"),    # window under one kv tile
+    (1, 200, 200, 2, 1, 256, True, 16, "bfloat16"),
+    (7, 100, 100, 19, 19, 128, True, 0, "bfloat16"),   # B*H = 133, not a multiple of 132
+]
 SCAN_RAGGED = [(3, 1, 7), (2, 300, 130), (1, 257, 129), (4, 1000, 2561)]  # (B, S, W)
 # (B, nc, L, H, P, N): B 2 at the served widths, then ragged L, P and N
 SSD_RAGGED = [(2, 4, 128, 24, 64, 128), (2, 3, 100, 5, 80, 40), (3, 2, 1, 3, 16, 200),
@@ -122,11 +141,12 @@ def median_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def attention_bound(case) -> tuple[float, str]:
+def attention_bound(case) -> tuple[float, str, float]:
     """Least time the card could take for this attention call: the larger of
     the live (q, k) pairs' FLOPs (QK^T and PV, 2 each per pair and head dim)
     over the peak rate of the input type, and q/k/v/o bytes (each once) over
-    the memory rate.  The live pairs are counted from this call's mask."""
+    the memory rate.  The live pairs are counted from this call's mask.
+    Returns (ms, what bounds it, FLOPs)."""
     b, sq, skv, h, hkv, hd, causal, window, dt = case
     live = 0
     for i in range(sq):
@@ -137,20 +157,20 @@ def attention_bound(case) -> tuple[float, str]:
     itemsize = 2 if dt == "bfloat16" else 4
     nbytes = itemsize * (2 * b * sq * h * hd + 2 * b * skv * hkv * hd)
     t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def scan_bound(shape) -> tuple[float, str]:
+def scan_bound(shape) -> tuple[float, str, float]:
     """Least time for one linear scan: a and b read once, h0 read once, the
     (B, S, W) float32 output written once, over the memory rate; its one
     FMA per element is ~1e-4 of that at the float32 peak."""
     b, s, w = shape
-    nbytes = 4 * (3 * b * s * w + b * w)
-    t_ops, t_bytes = 2.0 * b * s * w / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    nbytes, flops = 4 * (3 * b * s * w + b * w), 2.0 * b * s * w
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def ssd_bound(shape) -> tuple[float, str]:
+def ssd_bound(shape) -> tuple[float, str, float]:
     """Least time for one SSD intra-chunk call: xc, dac, bc, cc read once and
     the output written once over the memory rate, against the live (l >= s)
     pairs' FLOPs with C B^T formed once per chunk (2 * N per pair) and the
@@ -160,7 +180,22 @@ def ssd_bound(shape) -> tuple[float, str]:
     nbytes = 4 * (2 * b * nc * l * h * p + 2 * b * nc * l * n + b * h * nc * l)
     flops = 2.0 * (l * (l + 1) // 2) * (n + h * p) * b * nc
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def rates(r) -> str:
+    """Achieved TFLOP/s (the bound's FLOPs over the kernel's time) and the
+    kernel's time over its bound, as printed on the ``[kernel]`` lines."""
+    return f"tflops={r['tflops']!r} ms_over_bound={r['ms_over_bound']!r}"
+
+
+def with_rates(r: dict, bound) -> dict:
+    """``r`` with bound_ms, bound_by, tflops and ms_over_bound filled in from
+    ``bound`` = (ms, what bounds it, FLOPs) and r["ms"]."""
+    r["bound_ms"], r["bound_by"], flops = bound
+    r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+    r["ms_over_bound"] = r["ms"] / r["bound_ms"]
+    return r
 
 
 def m2_prompt_lengths(np) -> list[int]:
@@ -208,12 +243,35 @@ def phase_build(build_mod) -> None:
     logs = build_mod.build()
     for name, text in logs.items():
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in text.splitlines()
-                if "registers" in ln]
+                if "Used " in ln and "registers" in ln]
         spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
                      for ln in text.splitlines() if "spill stores" in ln)
         log(f"[build] {name}: {build_mod.lib_path(name).name} ({len(regs)} kernel instances, "
             f"registers max {max(regs) if regs else 'cached'}, spill stores {spills} bytes)")
+        bf16 = bf16_instances(text)
+        if bf16:
+            log(f"[build] {name} bf16 tensor-core instances (hd_pad, warps, BK, blocks/SM): "
+                + "; ".join(f"{args} registers {r} spill stores {sp} bytes"
+                            for args, r, sp in bf16))
     log(f"[build] {time.perf_counter() - t0:.2f}s")
+
+
+def bf16_instances(text: str) -> list:
+    """(template arguments, registers, spill-store bytes) of each bf16
+    flash instance in a ``ptxas -v`` log."""
+    import re
+
+    out, args = [], None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"fa_fwd_bf16_kernelI((?:Li\d+E)+)E", ln)
+            args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1))) if m else None
+        elif args is not None and "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif args is not None and "Used " in ln and "registers" in ln:
+            out.append((args, int(ln.split("Used ")[1].split()[0]), spill))
+            args = None
+    return out
 
 
 def _time_attention(torch, fa_ops, fa_ref, case, q, k, v) -> dict:
@@ -241,13 +299,13 @@ def _time_attention(torch, fa_ops, fa_ref, case, q, k, v) -> dict:
     else:
         out["library_ms"] = median_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-    out["bound_ms"], out["bound_by"] = attention_bound(case)
-    return out
+    return with_rates(out, attention_bound(case))
 
 
 def phase_flash(torch, fa_ops, fa_ref, rg_len: int) -> dict:
     """The flash kernel against its plain version on the card, at both
-    paths' shapes; timed at each path's largest."""
+    paths' shapes and at the bf16 kernel's edges; timed at each path's
+    largest, and the float32 (CUDA-core) instance at granite's."""
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator("cuda").manual_seed(1)
     rg_attn = (1, rg_len, rg_len, 10, 1, 256, True, RG_WINDOW, "bfloat16")
@@ -260,8 +318,9 @@ def phase_flash(torch, fa_ops, fa_ref, rg_len: int) -> dict:
         rg_attn[:8] + ("float32",),
         (2, 2100, 2100, 10, 1, 256, True, RG_WINDOW, "bfloat16"),  # B 2, just past the window
         (1, 555, 555, 10, 1, 256, True, RG_WINDOW, "float32"),     # inside the window, ragged
-    ] + FA_CASES
-    timed = {"granite-3-8b": GRANITE_ATTN, "recurrentgemma-2b": rg_attn}
+    ] + FA_CASES + FA_BF16_EDGES
+    timed = {"granite-3-8b": GRANITE_ATTN, "recurrentgemma-2b": rg_attn,
+             "granite-3-8b@float32": GRANITE_ATTN[:8] + ("float32",)}
     result = {}
     for case in cases:
         b, sq, skv, h, hkv, hd, causal, window, dt = case
@@ -282,7 +341,7 @@ def phase_flash(torch, fa_ops, fa_ref, rg_len: int) -> dict:
                                     **_time_attention(torch, fa_ops, fa_ref, case, q, k, v)}
                 log(f"[kernel] flash at the {path} shape {case}: kernel_ms={r['ms']!r} "
                     f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
-                    f"bound_ms={r['bound_ms']!r} ({r['bound_by']})")
+                    f"bound_ms={r['bound_ms']!r} ({r['bound_by']}) {rates(r)}")
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return result
@@ -313,14 +372,14 @@ def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
                       "plain_ms": median_ms(torch, lambda: rg_ref.linear_scan_plain(a, b, h0),
                                             reps=5, warmup=1),
                       "library_ms": None}
-            result["bound_ms"], result["bound_by"] = scan_bound(shape)
+            with_rates(result, scan_bound(shape))
     log(f"[kernel] linear_scan vs plain at {len(shapes)} shapes (B, S, W), h0 != 0: "
         f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SCAN_ATOL} rtol={SCAN_RTOL} "
         f"ok={sum(ok for *_, ok in errs)}; ragged {[(s, e) for s, e, _ in errs[-len(SCAN_RAGGED):]]}")
     log(f"[kernel] linear_scan at the recurrentgemma-2b shape {longest}: "
         f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
         f"(no single PyTorch call computes a linear recurrence) "
-        f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
+        f"bound_ms={result['bound_ms']!r} ({result['bound_by']}) {rates(result)}")
     torch.cuda.empty_cache()
     return result
 
@@ -360,14 +419,14 @@ def phase_ssd(torch, ssd_ops, ssd_ref, cfg, lengths: list[int]) -> dict:
                       "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_intra_plain(xc, dac, bc, cc),
                                             reps=10),
                       "library_ms": None}
-            result["bound_ms"], result["bound_by"] = ssd_bound(shape)
+            with_rates(result, ssd_bound(shape))
     log(f"[kernel] ssd_intra vs plain at {len(errs)} shapes (B, nc, L, H, P, N), dA in [-1.6, 0]: "
         f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SSD_ATOL} rtol={SSD_RTOL} "
         f"ok={sum(ok for *_, ok in errs)}; per shape {[(s, e) for s, e, _ in errs]}")
     log(f"[kernel] ssd_intra at the mamba2-130m shape {longest}: "
         f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
         f"(no single PyTorch call computes the masked-decay product) "
-        f"bound_ms={result['bound_ms']!r} ({result['bound_by']})")
+        f"bound_ms={result['bound_ms']!r} ({result['bound_by']}) {rates(result)}")
     torch.cuda.empty_cache()
     return result
 
@@ -561,9 +620,17 @@ def phase_model_check(torch, cfg, served, device, fa_ref, rg_ref) -> None:
 
     1. Every layer of the full-depth bf16 ``prefill``: each kernel's output
        on that layer's own inputs against its plain version (held): the
-       flash kernel on each ``attn`` layer's q/k/v (bf16 tolerance), the
-       scan kernel on each ``rec`` layer's (a, gated input, h0) (float32,
-       as the scan runs in float32 in a bf16 model).
+       flash kernel on each ``attn`` layer's q/k/v (bf16 tolerance) against
+       the plain version in float64, the exact function of those inputs;
+       the scan kernel on each ``rec`` layer's (a, gated input, h0)
+       (float32, as the scan runs in float32 in a bf16 model).  Against the
+       plain version in float32 the flash kernel is printed, not held:
+       recurrentgemma's scores reach ~40000 before scaling, where one
+       float32 ulp is ~0.004, and in rows whose two top keys nearly tie and
+       whose V rows cancel to an output near 0 the float32 plain version is
+       itself off the exact answer by up to ~94 % of the tolerance, so two
+       float32 computations that sum Q K^T in other orders stand outside it
+       of each other (``tools/flash_tiles.py`` counts them).
     2. The full-depth bf16 ``prefill`` with the kernels against the
        all-plain model (``attn_impl="xla"``, the scan's plain version),
        printed and not held, beside a control with no kernel in it (the
@@ -585,12 +652,15 @@ def phase_model_check(torch, cfg, served, device, fa_ref, rg_ref) -> None:
     model, params, prompt = served["model"], served["params"], served["prompt"]
     batch = {"tokens": prompt[None]}
     patch = Patched(tfm, rglru_mod)
-    attn_errs, scan_errs = [], []
+    attn_errs, attn32, scan_errs = [], [], []
 
     def checked_attention(q, k, v, **kw):
         out = patch.attention(q, k, v, **kw)
-        want = fa_ref.attention_plain(q, k, v, causal=kw["causal"], window=kw["window"])
+        want = fa_ref.attention_plain(q.double(), k.double(), v.double(), causal=kw["causal"],
+                                      window=kw["window"])
         attn_errs.append(_close(torch, out, want, TOL[cfg.dtype], TOL[cfg.dtype]))
+        want32 = fa_ref.attention_plain(q, k, v, causal=kw["causal"], window=kw["window"])
+        attn32.append(_close(torch, out, want32, TOL[cfg.dtype], TOL[cfg.dtype]))
         return out
 
     def checked_scan(a, b, h0):
@@ -604,15 +674,20 @@ def phase_model_check(torch, cfg, served, device, fa_ref, rg_ref) -> None:
 
     kinds = tfm.layer_kinds(cfg)
     got = patch.prefill(model, params, batch, checked_attention, checked_scan)
-    for name, errs, kind in (("flash", attn_errs, "attn"), ("linear_scan", scan_errs, "rec")):
+    for name, errs, kind, plain in (("flash", attn_errs, "attn", "plain in float64"),
+                                    ("linear_scan", scan_errs, "rec", "plain")):
         n = kinds.count(kind)
         if not n:
             continue
         log(f"[model] {cfg.name} prompt of {len(prompt)} tokens, per layer {name} kernel vs "
-            f"plain on the layer's own inputs: max_abs_err={max(e for e, _ in errs)!r} "
+            f"{plain} on the layer's own inputs: max_abs_err={max(e for e, _ in errs)!r} "
             f"layers={len(errs)} ok={sum(ok for _, ok in errs)}")
         if len(errs) != n or not all(ok for _, ok in errs):
             raise AssertionError(f"{name} disagrees with its plain version inside the model: {errs}")
+    if attn32:
+        log(f"[model] {cfg.name} per layer flash kernel vs plain in float32 (not held): "
+            f"max_abs_err={max(e for e, _ in attn32)!r} layers={len(attn32)} "
+            f"ok={sum(ok for _, ok in attn32)}")
 
     def all_plain(m, p):
         return patch.prefill(m, p, batch, None, rg_ref.linear_scan_plain)
@@ -710,7 +785,8 @@ def _entry(name, source, replaces, launches, r) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": list(r["shape"])}
+            "library_ms": r["library_ms"], "tflops": r["tflops"],
+            "ms_over_bound": r["ms_over_bound"], "shape": list(r["shape"])}
 
 
 def main() -> int:
