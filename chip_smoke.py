@@ -29,7 +29,10 @@ phase passes or raises.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with each kernel's launches on its serving path,
-error, times, bound, achieved TFLOP/s and time over bound, and as the last
+error, times (each with the wrapper's host latency inside; the scan's
+and the SSD kernel's also with L2 cold, ``cold_ms``, and as device time
+alone, ``device_ms`` and ``device_cold_ms``; null for flash, not
+measured), bound, achieved TFLOP/s and time over bound, and as the last
 line ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the rest of the repository
 beside this file, it exits non-zero and prints no result.
@@ -124,12 +127,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` single-call CUDA-event timings after warm-up."""
+# cold-L2 timing: this many bytes are written between two timed calls, more
+# than twice the H100's 50 MB L2, so the call finds none of its inputs there
+FLUSH_BYTES = 256 * 2**20
+# device-time timing: cycles the card spins (torch.cuda._sleep, ~0.5 ms)
+# ahead of each timed call, so that the host has enqueued the call before
+# the start event is reached
+LEAD_CYCLES = 1_000_000
+# the scan's repeated-call check: calls at the longest served shape that
+# must agree bit for bit
+SCAN_REPEATS = 20
+
+
+def median_ms(torch, fn, reps: int = 25, warmup: int = 3, cold: bool = False,
+              device: bool = False) -> float:
+    """Median of ``reps`` single-call CUDA-event timings after warm-up.  The
+    card is idle at the start event, so a time holds the wrapper's host
+    latency as well as the kernel, unless ``device``: then ``LEAD_CYCLES``
+    run ahead of each call and the events bracket device work only.
+    ``cold``: ``FLUSH_BYTES`` written and waited for before each call,
+    outside the timed window, so L2 holds none of its inputs."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for i in range(reps):
+        if cold:
+            flush.fill_(float(i))
+            torch.cuda.synchronize()
+        if device:
+            torch.cuda._sleep(LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -137,8 +164,18 @@ def median_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    del flush
     times.sort()
     return times[len(times) // 2]
+
+
+def scan_timings(torch, fn) -> dict:
+    """A scan kernel's ``ms`` (as the other kernels', host latency inside)
+    and, L2 cold and as device time, ``cold_ms``, ``device_ms`` and
+    ``device_cold_ms``."""
+    return {"ms": median_ms(torch, fn), "cold_ms": median_ms(torch, fn, cold=True),
+            "device_ms": median_ms(torch, fn, device=True),
+            "device_cold_ms": median_ms(torch, fn, cold=True, device=True)}
 
 
 def attention_bound(case) -> tuple[float, str, float]:
@@ -242,18 +279,34 @@ def phase_build(build_mod) -> None:
     t0 = time.perf_counter()
     logs = build_mod.build()
     for name, text in logs.items():
-        regs = [int(ln.split("Used ")[1].split()[0]) for ln in text.splitlines()
-                if "Used " in ln and "registers" in ln]
-        spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
-                     for ln in text.splitlines() if "spill stores" in ln)
-        log(f"[build] {name}: {build_mod.lib_path(name).name} ({len(regs)} kernel instances, "
-            f"registers max {max(regs) if regs else 'cached'}, spill stores {spills} bytes)")
+        entries = ptxas_entries(text)
+        log(f"[build] {name}: {build_mod.lib_path(name).name} ({len(entries)} kernel instances, "
+            f"registers max {max(r for _, r, _ in entries) if entries else 'cached'}, "
+            f"spill stores {sum(sp for *_, sp in entries)} bytes)")
         bf16 = bf16_instances(text)
         if bf16:
             log(f"[build] {name} bf16 tensor-core instances (hd_pad, warps, BK, blocks/SM): "
                 + "; ".join(f"{args} registers {r} spill stores {sp} bytes"
                             for args, r, sp in bf16))
+        elif entries:
+            log(f"[build] {name} instances (mangled): "
+                + "; ".join(f"{fn} registers {r} spill stores {sp} bytes" for fn, r, sp in entries))
     log(f"[build] {time.perf_counter() - t0:.2f}s")
+
+
+def ptxas_entries(text: str) -> list:
+    """(mangled name, registers, spill-store bytes) of each entry function
+    in a ``ptxas -v`` log."""
+    out, name, spill = [], None, 0
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], 0
+        elif name is not None and "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif name is not None and "Used " in ln and "registers" in ln:
+            out.append((name, int(ln.split("Used ")[1].split()[0]), spill))
+            name = None
+    return out
 
 
 def bf16_instances(text: str) -> list:
@@ -261,16 +314,11 @@ def bf16_instances(text: str) -> list:
     flash instance in a ``ptxas -v`` log."""
     import re
 
-    out, args = [], None
-    for ln in text.splitlines():
-        if "Compiling entry function" in ln:
-            m = re.search(r"fa_fwd_bf16_kernelI((?:Li\d+E)+)E", ln)
-            args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1))) if m else None
-        elif args is not None and "spill stores" in ln:
-            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
-        elif args is not None and "Used " in ln and "registers" in ln:
-            out.append((args, int(ln.split("Used ")[1].split()[0]), spill))
-            args = None
+    out = []
+    for mangled, r, sp in ptxas_entries(text):
+        m = re.search(r"fa_fwd_bf16_kernelI((?:Li\d+E)+)E", mangled)
+        if m:
+            out.append((tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1))), r, sp))
     return out
 
 
@@ -350,7 +398,9 @@ def phase_flash(torch, fa_ops, fa_ref, rg_len: int) -> dict:
 def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
     """The scan kernel against its plain version on the card: at every
     served prompt's shape (B 1, W 2560) and at ragged shapes, all with
-    h0 != 0; timed at the longest served prompt."""
+    h0 != 0; at the longest served prompt, ``SCAN_REPEATS`` calls agree bit
+    for bit (the carries between chunks must not depend on the order in
+    which blocks run), and it is timed there with L2 warm and cold."""
     gen = torch.Generator("cuda").manual_seed(2)
     longest = (1, max(lengths), 2560)
     shapes = [(1, s, 2560) for s in sorted(set(lengths))] + SCAN_RAGGED
@@ -367,8 +417,14 @@ def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
         if not ok:
             raise AssertionError(f"scan kernel disagrees with its plain version at {shape}: {err}")
         if shape == longest:
+            same = sum(bool(torch.equal(rg_ops.linear_scan(a, b, h0), got))
+                       for _ in range(SCAN_REPEATS - 1))
+            log(f"[kernel] linear_scan repeated {SCAN_REPEATS} times at {shape}: "
+                f"{same + 1} of {SCAN_REPEATS} bitwise equal")
+            if same != SCAN_REPEATS - 1:
+                raise AssertionError(f"linear_scan is not deterministic at {shape}")
             result = {"max_abs_err": err, "shape": shape,
-                      "ms": median_ms(torch, lambda: rg_ops.linear_scan(a, b, h0)),
+                      **scan_timings(torch, lambda: rg_ops.linear_scan(a, b, h0)),
                       "plain_ms": median_ms(torch, lambda: rg_ref.linear_scan_plain(a, b, h0),
                                             reps=5, warmup=1),
                       "library_ms": None}
@@ -377,7 +433,9 @@ def phase_scan(torch, rg_ops, rg_ref, lengths: list[int]) -> dict:
         f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SCAN_ATOL} rtol={SCAN_RTOL} "
         f"ok={sum(ok for *_, ok in errs)}; ragged {[(s, e) for s, e, _ in errs[-len(SCAN_RAGGED):]]}")
     log(f"[kernel] linear_scan at the recurrentgemma-2b shape {longest}: "
-        f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
+        f"kernel_ms={result['ms']!r} cold_ms={result['cold_ms']!r} "
+        f"device_ms={result['device_ms']!r} device_cold_ms={result['device_cold_ms']!r} "
+        f"plain_ms={result['plain_ms']!r} library_ms=none "
         f"(no single PyTorch call computes a linear recurrence) "
         f"bound_ms={result['bound_ms']!r} ({result['bound_by']}) {rates(result)}")
     torch.cuda.empty_cache()
@@ -389,7 +447,7 @@ def phase_ssd(torch, ssd_ops, ssd_ref, cfg, lengths: list[int]) -> dict:
     (the range dt * A takes): at every served prompt's shape, and at B 2
     and ragged shapes whose dac is a permuted view and bc/cc slices of one
     wider tensor, as the model passes them; timed at the longest served
-    prompt."""
+    prompt with L2 warm and cold."""
     gen = torch.Generator("cuda").manual_seed(3)
     longest = ssd_shape(max(lengths), cfg)
     served = sorted({ssd_shape(s, cfg) for s in lengths})
@@ -415,7 +473,7 @@ def phase_ssd(torch, ssd_ops, ssd_ref, cfg, lengths: list[int]) -> dict:
             raise AssertionError(f"ssd_intra disagrees with its plain version at {shape}: {err}")
         if shape == longest:
             result = {"max_abs_err": err, "shape": shape,
-                      "ms": median_ms(torch, lambda: ssd_ops.ssd_intra(xc, dac, bc, cc)),
+                      **scan_timings(torch, lambda: ssd_ops.ssd_intra(xc, dac, bc, cc)),
                       "plain_ms": median_ms(torch, lambda: ssd_ref.ssd_intra_plain(xc, dac, bc, cc),
                                             reps=10),
                       "library_ms": None}
@@ -424,7 +482,9 @@ def phase_ssd(torch, ssd_ops, ssd_ref, cfg, lengths: list[int]) -> dict:
         f"max_abs_err={max(e for _, e, _ in errs)!r} atol={SSD_ATOL} rtol={SSD_RTOL} "
         f"ok={sum(ok for *_, ok in errs)}; per shape {[(s, e) for s, e, _ in errs]}")
     log(f"[kernel] ssd_intra at the mamba2-130m shape {longest}: "
-        f"kernel_ms={result['ms']!r} plain_ms={result['plain_ms']!r} library_ms=none "
+        f"kernel_ms={result['ms']!r} cold_ms={result['cold_ms']!r} "
+        f"device_ms={result['device_ms']!r} device_cold_ms={result['device_cold_ms']!r} "
+        f"plain_ms={result['plain_ms']!r} library_ms=none "
         f"(no single PyTorch call computes the masked-decay product) "
         f"bound_ms={result['bound_ms']!r} ({result['bound_by']}) {rates(result)}")
     torch.cuda.empty_cache()
@@ -785,7 +845,8 @@ def _entry(name, source, replaces, launches, r) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "tflops": r["tflops"],
+            "library_ms": r["library_ms"], "cold_ms": r.get("cold_ms"), "device_ms": r.get("device_ms"),
+            "device_cold_ms": r.get("device_cold_ms"), "tflops": r["tflops"],
             "ms_over_bound": r["ms_over_bound"], "shape": list(r["shape"])}
 
 

@@ -42,8 +42,10 @@ KERNELS = {
     "linear_scan": (
         PKG / "kernels" / "rglru_scan" / "csrc" / "linear_scan.cu",
         {
-            # a, b, h0, out, B, S, W, stream
-            "linear_scan_fwd": ([_P, _P, _P, _P] + [_I] * 3 + [_P], _I),
+            # a, b, h0, out, flags, aggregates, B, S, W, stream
+            "linear_scan_fwd": ([_P] * 6 + [_I] * 3 + [_P], _I),
+            # B, S, W, &int32 scratch, &float32 scratch
+            "linear_scan_scratch": ([_I] * 3 + [ctypes.POINTER(_L)] * 2, None),
             "linear_scan_error_string": ([_I], ctypes.c_char_p),
         },
     ),

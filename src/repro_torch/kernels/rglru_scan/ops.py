@@ -6,7 +6,10 @@ its signature and contract: h_t = a_t * h_{t-1} + b_t, a/b (B, S, W) and h0
 replaces the Pallas kernel
 ``repro/kernels/rglru_scan/kernel.py::_scan_kernel``; it masks ragged S and
 W itself, so the wrapper makes no padded copy (the reference pads to block
-multiples with a=1, b=0).
+multiples with a=1, b=0).  The kernel scans chunks of S in parallel and
+passes carries between them through scratch that the wrapper allocates for
+each call as one zeroed buffer: a ticket and chunk flags, then the chunks'
+aggregates.
 
 A tensor on the CPU takes the plain version (``ref.linear_scan_plain``); a
 CUDA tensor launches the kernel or raises.  ``linear_scan.launches`` counts
@@ -14,6 +17,9 @@ the launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -37,8 +43,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
         return out
     a, b, h0 = (t.float().contiguous() for t in (a, b, h0))
     lib = _build.load("linear_scan")
+    n_ints, n_floats = _scratch_size(bsz, s, w)
+    # one allocation and one memset a call: the ticket and flags need zeros,
+    # the aggregates (after them) take any contents
+    scratch = torch.zeros(n_ints + n_floats, dtype=torch.int32, device=a.device)
     err = lib.linear_scan_fwd(
-        a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(), bsz, s, w,
+        a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 4 * n_ints, bsz, s, w,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err != 0:
@@ -49,3 +60,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Ten
 
 
 linear_scan.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_size(bsz: int, s: int, w: int) -> tuple[int, int]:
+    """(int32 words, float32 words) of scratch the kernel needs at (B, S, W),
+    from its own tile geometry."""
+    n_ints, n_floats = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.load("linear_scan").linear_scan_scratch(bsz, s, w, ctypes.byref(n_ints),
+                                                   ctypes.byref(n_floats))
+    return n_ints.value, n_floats.value
