@@ -12,7 +12,10 @@ Skv, a window under one kv tile), and drives the port's three serving paths
 with random weights from a seed, drawn on the card:
 
   * full-width granite-3-8b through ``DecodeEngine(batching=True)`` (packed
-    prefill; the flash kernel in every layer);
+    prefill; the flash kernel in every layer), then again with
+    ``prefix_kv=True`` on shared-prefix traffic in two waves: full hits,
+    boundary plants, and follow-ups resumed from retirement deposits through
+    continuation prefill (plain attention, no kernel, as in the reference);
   * full-width recurrentgemma-2b through ``DecodeEngine(batching=False)``
     (per-request prefill; the RG-LRU scan kernel in its 18 recurrent layers,
     the flash kernel at head dim 256 with a 2048-token window in its 8
@@ -24,8 +27,9 @@ with random weights from a seed, drawn on the card:
 
 all under the CNA scheduler.  Each path's launch counts are set to 0 just
 before it and read just after, and must match its prefill calls.  Then the
-kernels are checked inside each model against the plain versions.  Every
-phase passes or raises.
+kernels are checked inside each model against the plain versions, and
+continuation prefill against fresh packed prefill of the whole prompts.
+Every phase passes or raises.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` with each kernel's launches on its serving path,
@@ -116,6 +120,14 @@ SSD_RAGGED = [(2, 4, 128, 24, 64, 128), (2, 3, 100, 5, 80, 40), (3, 2, 1, 3, 16,
 # the recurrentgemma-2b workload: 16 prompts of 64-3000 tokens, the first 4
 # drawn past the 2048-token window, all shuffled by numpy's default_rng(0)
 RG_REQUESTS, RG_LONG, RG_PROMPTS, RG_WINDOW = 16, 4, (64, 3001), 2048
+# the granite prefix-KV workload, from numpy's default_rng(42): wave 1 is 8
+# prompts sharing a 512-token system prompt, each with its own suffix of
+# 16-200 tokens, and exact repeats of the first 4 (full hits); wave 2,
+# submitted when wave 1 has retired, is 4 follow-ups, each a wave-1
+# request's prompt + output extended by 32-128 new tokens (partial hits on
+# the retirement deposits)
+PKV_SYSTEM, PKV_SHARED, PKV_SUFFIX, PKV_REPEATS = 512, 8, (16, 201), 4
+PKV_FOLLOW, PKV_EXTEND = 4, (32, 129)
 # the mamba2-130m workload: 16 prompts of 64-2000 tokens (its training
 # context is 2048): one under a 128-token chunk, one an exact multiple of
 # it, the longest 2000 (padded to 16 chunks), and 13 drawn by numpy's
@@ -501,6 +513,7 @@ class TimedCall:
         self.torch, self.inner, self.vocab, self.sync, self.packed = torch, inner, vocab, sync, packed
         self.ms: list[float] = []
         self.lens: list[int] = []
+        self.buckets: list[int] = []
         self.finite: list[bool] = []
 
     @property
@@ -518,9 +531,10 @@ class TimedCall:
         logits, cache = self.inner(params, *args)
         self.sync()
         self.ms.append((time.perf_counter() - t0) * 1e3)
-        if self.packed:  # (tokens, lengths): rows of length 0 are dummies
-            real = torch.as_tensor(args[1], device=logits.device) > 0
-            self.lens.append(int(max(args[1])))
+        if self.packed:  # (..., tokens, lengths): rows of length 0 are dummies
+            real = torch.as_tensor(args[-1], device=logits.device) > 0
+            self.lens.append(int(max(args[-1])))
+            self.buckets.append(int(args[-2].shape[1]))
         else:  # ({"tokens": (1, S)},)
             real = slice(None)
             self.lens.append(int(args[0]["tokens"].shape[1]))
@@ -627,6 +641,205 @@ def phase_serve(torch, np, counters, cfg, device, *, batching, lengths, n_slots=
     longest = max(reqs, key=lambda r: len(r.prompt))
     return {"launches": launches, "prefill_calls": warm_calls + len(timed.ms),
             "model": model, "params": params, "prompt": longest.prompt}
+
+
+def _by_bucket(timed) -> dict:
+    """{bucket: [ms of each call at it]} of a packed or continuation call."""
+    out: dict = {}
+    for b, ms in zip(timed.buckets, timed.ms):
+        out.setdefault(b, []).append(round(ms, 3))
+    return dict(sorted(out.items()))
+
+
+def _run_wave(torch, np, eng, reqs, sync) -> dict:
+    """Submit ``reqs`` and step the engine until they retire: tokens/s and
+    TTFT percentiles, as ``phase_serve`` reads them."""
+    submit_at = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    ttft = {}
+    while len(eng.scheduler) or eng.active_req:
+        eng.step()
+        now = time.perf_counter()
+        for r in reqs:
+            if r.rid not in ttft and r.out:
+                ttft[r.rid] = (now - submit_at) * 1e3
+    sync()
+    wall = time.perf_counter() - submit_at
+    waits = np.array([ttft[r.rid] for r in reqs])
+    return {"requests": len(reqs), "tokens": sum(len(r.out) for r in reqs), "wall_s": wall,
+            "tokens_per_s": sum(len(r.out) for r in reqs) / wall,
+            "ttft_p50_ms": float(np.percentile(waits, 50)),
+            "ttft_p99_ms": float(np.percentile(waits, 99))}
+
+
+def _cont_against_fresh(torch, model, params, prompts, cache_len, pack):
+    """``prefill_cont`` from a seeded prefix against ``prefill_packed`` of the
+    whole prompts: the seed is the prefill of the shared ``PKV_SYSTEM``-token
+    prefix fitted to ``cache_len``.  Returns both calls' (logits, per-row
+    (batch=1) views of the cache)."""
+    from repro_torch.serving.batching import PrefillBatcher
+    from repro_torch.serving.kvcache import SlotCache
+
+    batcher = PrefillBatcher(model, cache_len=cache_len, pack_width=pack)
+    slots = SlotCache.zeros(model, 1, cache_len)
+    seed = slots.fit_single(model.prefill(params, {"tokens": prompts[0][None, :PKV_SYSTEM]})[1])
+    cl, cc = batcher.continue_rows(params, [seed] * len(prompts), [p[PKV_SYSTEM:] for p in prompts])
+    fl, fc = batcher.prefill(params, prompts)
+    rows = [[batcher.extract_row(c, i) for i in range(len(prompts))] for c in (cc, fc)]
+    return (cl[: len(prompts)], rows[0]), (fl[: len(prompts)], rows[1])
+
+
+def phase_prefix_kv(torch, np, fa_ops, cfg, served, device) -> dict:
+    """Granite's serving path with the prefix-KV store, on the model and
+    weights ``phase_serve`` built: ``DecodeEngine(batching=True,
+    prefix_kv=True, n_slots=8, cache_len=1024)`` under the CNA scheduler,
+    wave 1 then wave 2 (``PKV_*``), 16 new tokens a request.  The flash
+    count is set to 0 just before the engine is built (the warm-up of the
+    packed and the continuation buckets is part of the path) and read just
+    after wave 2.
+
+    Held: every request retires with 16 tokens and finite first-token
+    logits; positions resumed, deposits made and continuation calls served;
+    computed + resumed positions = the prompts' lengths; continuation
+    signatures within the buckets; flash launched once a layer in every
+    packed fresh call and never by a continuation; every entry stored after
+    wave 1 bitwise unchanged after wave 2; and on the first
+    ``MODEL_CHECK_LAYERS`` layers in float32, continuation from the seeded
+    512-token prefix against fresh packed prefill of the whole prompts:
+    last-token logits within ``MODEL_TOL_FRAC`` of their range with the same
+    argmax, and the KV of every position within ``MODEL_TOL_FRAC`` of the
+    fresh KV's range.  Printed: the same comparison at full depth in bf16
+    (the random model is chaotic, ``phase_model_check``), tokens/s, TTFT,
+    ms per call by bucket, positions, deposits, store hits and peak memory."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import CNAScheduler, DecodeEngine, Request
+    from repro_torch.serving.kvcache import _tensors
+
+    def sync():
+        torch.cuda.synchronize()
+
+    model, params = served["model"], served["params"]
+    max_new, cache_len, n_slots = 16, 1024, 8
+    rng = np.random.default_rng(42)
+    system = rng.integers(0, cfg.vocab, PKV_SYSTEM).astype(np.int32)
+    wave1 = []
+    for i in range(PKV_SHARED):
+        sfx = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_SUFFIX))).astype(np.int32)
+        wave1.append(Request(rid=i, prompt=np.concatenate([system, sfx]), max_new=max_new,
+                             domain=int(rng.integers(0, 2))))
+    for i in range(PKV_REPEATS):
+        wave1.append(Request(rid=PKV_SHARED + i, prompt=wave1[i].prompt.copy(), max_new=max_new,
+                             domain=wave1[i].domain))
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the path: counts set to 0 just before, read just after ---
+    fa_ops.flash_attention.launches = 0
+    t_build = time.perf_counter()
+    eng = DecodeEngine(model, params, batching=True, prefix_kv=True, n_slots=n_slots,
+                       cache_len=cache_len, scheduler=CNAScheduler())
+    sync()
+    warm_s = time.perf_counter() - t_build
+    packed = eng.batcher.packed = TimedCall(torch, eng.batcher.packed, cfg.vocab, sync, True)
+    cont = eng.batcher.cont = TimedCall(torch, eng.batcher.cont, cfg.vocab, sync, True)
+    w1 = _run_wave(torch, np, eng, wave1, sync)
+    # every entry stored now, with clones of its tensors, to hold after wave 2
+    store = eng.prefix_kv
+    snap = [(key, c, lg, [t.clone() for t in _tensors(c)] + [c["pos"].clone(), lg.clone()])
+            for key, (c, lg) in store._lru.items()]
+    wave2 = []
+    for i in range(PKV_FOLLOW):
+        src = wave1[2 * i]  # four of the distinct prompts
+        new = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_EXTEND))).astype(np.int32)
+        wave2.append(Request(rid=100 + i, prompt=np.concatenate(
+            [src.prompt, np.asarray(src.out, np.int32), new]), max_new=max_new, domain=src.domain))
+    w2 = _run_wave(torch, np, eng, wave2, sync)
+    launches = fa_ops.flash_attention.launches
+    # --- end of the path ---
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    reqs = wave1 + wave2
+    for name, w in (("wave 1", w1), ("wave 2", w2)):
+        log(f"[prefix_kv] {cfg.name} {name}: requests={w['requests']} tokens={w['tokens']} "
+            f"wall_s={w['wall_s']!r} tokens_per_s={w['tokens_per_s']!r} "
+            f"ttft_p50_ms={w['ttft_p50_ms']!r} ttft_p99_ms={w['ttft_p99_ms']!r}")
+    log(f"[prefix_kv] {cfg.name} warm={warm_s:.2f}s ({len(eng.batcher.buckets)} buckets, packed "
+        f"and continuation); serving calls (bucket: ms): packed {_by_bucket(packed)!r} "
+        f"continuation {_by_bucket(cont)!r}")
+    log(f"[prefix_kv] {cfg.name} prefill_positions={eng.prefill_positions} "
+        f"reused_positions={eng.reused_positions} kv_deposits={eng.kv_deposits} "
+        f"store hits={store.hits} misses={store.misses} reused_tokens={store.reused_tokens} "
+        f"entries={len(store)} compile_counts={eng.compile_counts} "
+        f"flash launches={launches} packed calls={packed.calls} continuation calls={cont.calls} "
+        f"peak_mem_gb={peak!r}")
+    if not all(len(r.out) == max_new for r in reqs):
+        raise AssertionError(f"not every request retired with {max_new} tokens: "
+                             f"{[len(r.out) for r in reqs]}")
+    if not all(packed.finite + cont.finite):
+        raise AssertionError("a first-token logit is not finite")
+    if not (eng.reused_positions > 0 and eng.kv_deposits >= len(wave1) and cont.ms):
+        raise AssertionError(f"the store did not serve: reused {eng.reused_positions}, deposits "
+                             f"{eng.kv_deposits}, continuation calls while serving {len(cont.ms)}")
+    total = sum(len(r.prompt) for r in reqs)
+    if eng.prefill_positions + eng.reused_positions != total:
+        raise AssertionError(f"computed {eng.prefill_positions} + resumed {eng.reused_positions} "
+                             f"!= {total} prompt positions")
+    if eng.compile_counts["cont_prefill"] > len(eng.batcher.buckets):
+        raise AssertionError(f"continuation signatures {eng.compile_counts} over the buckets")
+    if launches != cfg.n_layers * packed.calls:
+        raise AssertionError(f"flash launches {launches} != {cfg.n_layers} layers x "
+                             f"{packed.calls} packed calls")
+    changed = [len(key) for key, c, lg, clones in snap
+               if not all(torch.equal(a, b) for a, b in
+                          zip(_tensors(c) + [c["pos"], lg], clones))]
+    log(f"[prefix_kv] {cfg.name} store entries after wave 1: {len(snap)}, bitwise unchanged "
+        f"after wave 2: {len(snap) - len(changed)}")
+    if changed:
+        raise AssertionError(f"stored entries of lengths {changed} changed while serving")
+    del eng, snap, store
+
+    prompts = [r.prompt for r in wave1[:PKV_SHARED]]
+    (cl, _), (fl, _) = _cont_against_fresh(torch, model, params, prompts, cache_len, n_slots)
+    diffs = [_logit_diff(cfg, cl[i : i + 1], fl[i : i + 1]) for i in range(len(prompts))]
+    log(f"[prefix_kv] {cfg.name} {cfg.n_layers} layers {cfg.dtype}, continuation from the {PKV_SYSTEM}-"
+        f"token prefix vs fresh packed prefill (not held): max_abs_diff="
+        f"{max(d for d, _, _ in diffs)!r} max|logit| {max(m for _, m, _ in diffs)!r} "
+        f"same_argmax={sum(same for *_, same in diffs)}/{len(diffs)}")
+
+    n = MODEL_CHECK_LAYERS[cfg.name]
+    small = build_model(cfg.replace(n_layers=n, dtype="float32"), device=device)
+    reps = {name: seg.n_rep for seg in small.segments for name in tfm.param_names(seg)}
+    cut = _cast({k: v[: reps[k]] if k in reps else v for k, v in params.items()
+                 if k in reps or isinstance(v, torch.Tensor)}, torch.float32)
+    (cl, crows), (fl, frows) = _cont_against_fresh(torch, small, cut, prompts, cache_len, n_slots)
+    worst, ok = [], True
+    for i, p in enumerate(prompts):
+        diff, scale, same = _logit_diff(cfg, cl[i : i + 1], fl[i : i + 1])
+        kv_err, kv_scale = 0.0, 0.0
+        for a, b in zip(_tensors(crows[i]), _tensors(frows[i])):
+            a, b = a[..., : len(p), :, :], b[..., : len(p), :, :]
+            kv_err = max(kv_err, float((a - b).abs().max()))
+            kv_scale = max(kv_scale, float(b.abs().max()))
+        ok &= diff <= MODEL_TOL_FRAC * scale and same and kv_err <= MODEL_TOL_FRAC * kv_scale
+        worst.append((diff, MODEL_TOL_FRAC * scale, same, kv_err, MODEL_TOL_FRAC * kv_scale))
+    log(f"[prefix_kv] {cfg.name} first {n} layers in float32, continuation vs fresh packed "
+        f"prefill, per row (logit diff, tol, same argmax, KV diff, tol): {worst!r}")
+    # control, printed: the fresh packed prefill with plain attention, against
+    # the continuation (plain attention in both but the seed's prefix) and
+    # against the fresh prefill with the kernel
+    from repro_torch.serving.batching import PrefillBatcher
+
+    plain = build_model(cfg.replace(n_layers=n, dtype="float32", attn_impl="xla"), device=device)
+    pl, _ = PrefillBatcher(plain, cache_len=cache_len, pack_width=n_slots).prefill(cut, prompts)
+    log(f"[prefix_kv] {cfg.name} first {n} layers in float32, control (not held), per row logit "
+        f"diff vs fresh packed prefill with plain attention: continuation "
+        f"{[_logit_diff(cfg, cl[i : i + 1], pl[i : i + 1])[0] for i in range(len(prompts))]!r}; "
+        f"fresh with the kernel "
+        f"{[_logit_diff(cfg, fl[i : i + 1], pl[i : i + 1])[0] for i in range(len(prompts))]!r}")
+    if not ok:
+        raise AssertionError(f"{cfg.name}: continuation and fresh prefill disagree: {worst}")
+    return {"launches": launches}
 
 
 def _check_launches(cfg, served, per_call: dict) -> None:
@@ -892,6 +1105,7 @@ def main() -> int:
     _check_launches(gcfg, served, {"flash": gcfg.n_layers})
     phase_model_check(torch, gcfg, served, "cuda", fa_ref, rg_ref)
     granite_flash = served["launches"]["flash"]
+    pkv = phase_prefix_kv(torch, np, fa_ops, gcfg, served, "cuda")
     del served
     torch.cuda.empty_cache()
     log(f"[time] granite-3-8b done at {time.perf_counter() - t0:.1f}s")
@@ -923,6 +1137,8 @@ def main() -> int:
     fa_rep = "src/repro/kernels/flash_attention/kernel.py:38"
     kernels = [
         _entry("flash_attention_fwd", fa_src, fa_rep, granite_flash, flash["granite-3-8b"]),
+        _entry("flash_attention_fwd@granite-3-8b+prefix_kv", fa_src, fa_rep, pkv["launches"],
+               flash["granite-3-8b"]),
         _entry("flash_attention_fwd@recurrentgemma-2b", fa_src, fa_rep,
                rg_launches["flash"], flash["recurrentgemma-2b"]),
         _entry("linear_scan", "src/repro_torch/kernels/rglru_scan/csrc/linear_scan.cu",

@@ -21,18 +21,20 @@ SSD block keeps its state (B, H, P, N) in float32 and the conv tail
 (B, K-1, d_inner + 2N).
 
 Block kinds ported: ``attn``, ``rec`` and ``ssd``.  ``moe``,
-cross-attention and patch prefixes raise ``NotImplementedError``, and so
-does continuation prefill (``prefill_cont``), which waits for the prefix-KV
-store.
+cross-attention and patch prefixes raise ``NotImplementedError``.
+Continuation prefill (``prefill_cont``, the prefix-KV store's packed
+resume) takes ``attn`` stacks only and raises ``ValueError`` for the
+others, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
-from .attention import NEG_INF, attention, attn_decode
+from .attention import NEG_INF, _group_q, attention, attn_decode
 from .common import DTYPES, ParamBuilder, apply_rope, embed_lookup, norm, rope_angles
 from .mlp import declare_mlp, mlp_apply
 from .rglru import declare_rglru, rglru_block, rglru_block_step
@@ -249,6 +251,76 @@ def block_step(params, x_t, cfg, kind, pos, cache):
         raise ValueError(kind)
     h = _norm(params, "ln2", x_t, cfg)
     return x_t + mlp_apply(params["mlp"], h, cfg.mlp), new
+
+
+# ---------------------------------------------------------------------------
+# continuation prefill (continuous batching with the prefix-KV store)
+# ---------------------------------------------------------------------------
+
+def _scatter_rows(cache: torch.Tensor, new: torch.Tensor, start, length) -> torch.Tensor:
+    """Write ``new`` (B, T, kv, hd) into ``cache`` (B, S, kv, hd) IN PLACE at
+    per-row column offsets: token t of row b lands at column ``start[b] +
+    t``, and only ``t < length[b]`` commits (right-padded rows never touch
+    the cache).  The reference's gather-then-select over the whole cache,
+    with the result copied back; returns ``cache``."""
+    idx = torch.arange(cache.shape[1], device=cache.device)[None, :] - start[:, None].long()
+    valid = (idx >= 0) & (idx < length[:, None].long())                # (B, S)
+    take = torch.clamp(idx, 0, new.shape[1] - 1)[:, :, None, None]
+    g = torch.gather(new, 1, take.expand(-1, -1, *new.shape[2:]))
+    cache.copy_(torch.where(valid[:, :, None, None], g.to(cache.dtype), cache))
+    return cache
+
+
+def _attn_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, start) -> torch.Tensor:
+    """``attn_xla`` with a per-row query offset: query t of row b sits at
+    position ``start[b] + t`` and attends causally over the position-ordered
+    cache columns; masked columns contribute exact zeros.  Products take
+    float32 inputs, the reference's ``preferred_element_type=float32``.
+
+    The reference computes this in plain jnp (``transformer.py:295``): it
+    has no Pallas kernel, so this stays plain PyTorch on every device, with
+    no kernel to fall back from."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qg = _group_q(q * torch.tensor(scale, dtype=q.dtype), hkv)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(k_cache.dtype).float(), k_cache.float())
+    q_pos = start[:, None].long() + torch.arange(sq, device=q.device)[None, :]     # (B, Sq)
+    mask = q_pos[:, :, None] - torch.arange(skv, device=q.device)[None, None, :] >= 0
+    s.masked_fill_(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _attn_cont(params, x, cfg, rope_cs, kv_cache, start, length):
+    """Attention sublayer, suffix-continuation mode: the suffix K/V land in
+    the seeded cache ``kv_cache`` at per-row offsets first (in place), then
+    the suffix queries attend over the whole cache.  Returns x_out."""
+    h = _norm(params, "ln1", x, cfg)
+    q = _proj_heads(h, params["wq"])
+    k = _proj_heads(h, params["wk"])
+    v = _proj_heads(h, params["wv"])
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    kc, vc = kv_cache
+    _scatter_rows(kc, k, start, length)
+    _scatter_rows(vc, v, start, length)
+    o = _attn_rows(q, kc, vc, start)
+    return x + _merge_heads(o, params["wo"])
+
+
+def block_cont(params, x, cfg, kind, rope_cs, kv_cache, start, length):
+    """Suffix-continuation block (``attn`` only: recurrent and SSM state
+    absorbs padded positions, so those families never take this path).
+    Writes the suffix K/V into ``kv_cache`` and returns x."""
+    if kind != "attn":
+        raise ValueError(f"continuation prefill supports 'attn' blocks, got {kind!r}")
+    x = _attn_cont(params, x, cfg, rope_cs, kv_cache, start, length)
+    h = _norm(params, "ln2", x, cfg)
+    return x + mlp_apply(params["mlp"], h, cfg.mlp)
 
 
 def cfg_cache_dtype(cfg):
@@ -478,10 +550,47 @@ class DecoderLM:
         caches["pos"] = lengths
         return logits[:, 0], caches
 
+    @torch.no_grad()
     def prefill_cont(self, params, cache, tokens, lengths):
-        raise NotImplementedError(
-            "continuation prefill waits for the prefix-KV store slice of the port"
-        )
+        """Continuation prefill: extend per-row seeded caches by whole
+        right-padded suffixes in one call.  ``cache`` is a batched cache
+        whose ``pos`` (B,) marks each row's seeded length (KV for positions
+        < pos written, zeros past it); ``tokens`` (B, T) are the suffixes,
+        ``lengths`` (B,) their true lengths -> (per-row last-real-token
+        logits (B, Vpad), cache with ``pos = start + lengths``).  Rows with
+        ``length == 0`` pass through untouched.
+
+        The suffix K/V are written INTO the cache it is handed, as
+        ``decode_step`` writes its cache; the returned dict holds the same
+        tensors and a new ``pos``.  The batcher hands it a freshly stacked
+        cache, never a stored entry.
+
+        The reference's claim that this is bitwise the fresh prefill of the
+        whole prompts does not carry over: it agrees with ``prefill_packed``
+        to rounding.  On the card the fresh path's attention is the flash
+        kernel and this one's is plain, and the matmuls have other shapes."""
+        cfg = self.cfg
+        start = torch.as_tensor(cache["pos"], device=self.device).to(torch.int32)
+        lengths = torch.as_tensor(lengths, device=self.device).to(torch.int32)
+        tokens = self._tokens(tokens)
+        x = embed_lookup(params["embed"], tokens)
+        rope_cs = None
+        if cfg.pos == "rope":
+            pos = start[:, None] + torch.arange(tokens.shape[1], device=self.device)[None, :]
+            rope_cs = rope_angles(pos, cfg.hd, cfg.rope_theta)
+        for seg in self.segments:
+            stacked = seg.mode == "scan"
+            per = cache[seg.name] if stacked else (cache[seg.name],)
+            for r in range(seg.n_rep):
+                for (kind, ps), kv in zip(self._layers(params, seg), per):
+                    kv_r = tuple(t[r] for t in kv) if stacked else kv
+                    x = block_cont(ps[r], x, cfg, kind, rope_cs, kv_r, start, lengths)
+        idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
+        x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        logits = self._logits(params, x_last)
+        new_cache = dict(cache)
+        new_cache["pos"] = start + lengths
+        return logits[:, 0], new_cache
 
     def _merge_kv(self, old: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Write the (..., B, 1, kv, hd) new-token slices into the (..., B,

@@ -7,8 +7,10 @@ reference's.  ``PrefillBatcher`` packs up to ``pack_width`` prompts into one
 eagerly, so nothing is traced; ``CountingCall`` counts the distinct
 input-shape signatures a function is called with, which is what ``jax.jit``
 traces once each, so ``compile_counts`` reads the same as the JAX engine's
-on the same workload.  Continuation prefill (``continue_rows``) waits for
-the prefix-KV slice.
+on the same workload.  Prefix-KV resumes go through ``continue_rows``: one
+``prefill_cont`` call extends up to ``pack_width`` stored (batch=1) caches
+by their suffixes, over a freshly stacked cache, so no stored entry is
+written.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .kvcache import _tensors, leaf_axes, rebuild
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +125,12 @@ class PrefillBatcher:
             functools.partial(model.prefill_packed, cache_headroom=cache_headroom)
         )
         self.cont = CountingCall(model.prefill_cont)
+        # per-leaf batch axes (as SlotCache reads them) and a zero (batch=1)
+        # row of the shape SlotCache.fit_single gives a stored entry: the
+        # pad filler for partial continuation packs and the warm template,
+        # so serving adds no continuation signature
+        self._zero_row = model.cache_zeros(1, cache_len)
+        self.axes = leaf_axes(self._zero_row, model.cache_logical())
 
     def pack_tokens(self, prompts):
         """Right-pad ``prompts`` (<= pack_width of them) into one
@@ -141,12 +151,47 @@ class PrefillBatcher:
         toks, lens = self.pack_tokens(prompts)
         return self.packed(params, toks, lens)
 
+    def continue_rows(self, params, rows, suffixes):
+        """One continuation call: extend each (batch=1) seeded cache in
+        ``rows`` by its suffix.  Rows must share the ``SlotCache.fit_single``
+        shape (stored prefix caches do, by the store's deposit contract).
+        The rows are copied into one stacked cache, which ``prefill_cont``
+        then writes; the rows themselves are only read."""
+        if len(rows) != len(suffixes) or len(rows) > self.pack_width:
+            raise ValueError("rows/suffixes mismatch or pack_width exceeded")
+        toks, lens = self.pack_tokens(suffixes)
+        cache = self._stack(list(rows) + [self._zero_row] * (self.pack_width - len(rows)))
+        return self.cont(params, cache, toks, lens)
+
+    # -- row plumbing ----------------------------------------------------------
+    def _stack(self, rows):
+        """Concatenate ``pack_width`` (batch=1) caches along each leaf's batch
+        axis into one new batched cache with ``pos`` (pack_width,) int32."""
+        leaves = [torch.cat(ts, dim=ax)
+                  for ts, (ax, _) in zip(zip(*(_tensors(r) for r in rows)), self.axes)]
+        out = rebuild(leaves, rows[0])
+        out["pos"] = torch.stack([torch.as_tensor(r["pos"]).to(torch.int32).reshape(())
+                                  for r in rows])
+        return out
+
+    def extract_row(self, cache, row: int):
+        """Lane ``row`` of a packed cache as a (batch=1) cache with the scalar
+        ``pos`` the per-request ``prefill`` emits.  The leaves are views into
+        ``cache``: ``SlotCache.fit_single`` copies them before anything keeps
+        them."""
+        out = rebuild([t.narrow(ax, row, 1) for t, (ax, _) in zip(_tensors(cache), self.axes)],
+                      cache)
+        out["pos"] = cache["pos"][row]
+        return out
+
     def warm(self, params, *, cont: bool = False):
         """Run every bucket once ahead of serving, as the reference compiles
-        every bucket trace at construction."""
-        if cont:
-            raise NotImplementedError("continuation prefill waits for the prefix-KV slice")
+        every bucket trace at construction, and with ``cont`` one
+        continuation call per bucket over a stack of zero rows."""
+        cache = self._stack([self._zero_row] * self.pack_width) if cont else None
         for b in self.buckets:
             toks = np.zeros((self.pack_width, b), np.int32)
             lens = np.zeros((self.pack_width,), np.int32)
             self.packed(params, toks, lens)
+            if cont:
+                self.cont(params, cache, toks, lens)

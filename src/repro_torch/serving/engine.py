@@ -7,12 +7,21 @@ admission goes through the bucketed, packed prefill layer: at most one
 packed prefill call per ``step()``, interleaved with running decode.
 
 Same units, counters and span names as the reference (``sim_time`` in
-scheduler ticks, ``prefill_positions`` in KV positions).  The per-request
-path (``batching=False``) serves every ported family, the hybrid RG-LRU
-and SSM ones included; the packed path refuses what the model's
-``supports_packed_prefill`` refuses, with ``ValueError``.  Placement, the
-prefix index, the prefix-KV store and paging are not ported in this slice
-and raise ``NotImplementedError``.
+scheduler ticks, ``prefill_positions`` and ``reused_positions`` in KV
+positions).  The per-request path (``batching=False``) serves every ported
+family, the hybrid RG-LRU and SSM ones included; the packed path refuses
+what the model's ``supports_packed_prefill`` refuses, with ``ValueError``.
+
+``prefix_kv`` (``True`` or a ``PrefixKVStore``) resumes prefill from
+stored caches on both paths, deposits retiring conversations back, and
+exports and imports stored prefixes (``export_kv`` / ``import_kv`` /
+``peek_match``).  The port's caches are written in place, so every entry
+the store holds is a tensor no live path writes: deposits go through
+``SlotCache.fit_single`` or ``extract`` (copies), the continuation pack
+stacks copies, and the per-request resume loop steps a clone of the entry.
+Placement, the prefix index and paging are not ported and raise
+``NotImplementedError``; without an index, boundary plants come from the
+store's own ``common_run``.
 
 Greedy sampling (argmax) keeps the engine deterministic for tests.
 """
@@ -26,6 +35,7 @@ import torch
 
 from .batching import CountingCall, PrefillBatcher
 from .kvcache import SlotCache
+from .prefixkv import PrefixKVStore
 from .scheduler import CNAScheduler
 
 
@@ -49,7 +59,10 @@ class Request:
 class DecodeEngine:
     """Continuous-batching decode engine over a CNA-disciplined scheduler.
 
-    ``model`` is a ``repro_torch`` model; the engine runs on its device."""
+    ``model`` is a ``repro_torch`` model; the engine runs on its device.
+    ``prefill_positions`` / ``reused_positions`` count KV positions computed
+    / resumed from stored caches, ``kv_deposits`` the retirement-time
+    deposits made back into the store."""
 
     def __init__(
         self,
@@ -72,7 +85,7 @@ class DecodeEngine:
         paging: bool = False,
     ):
         for name, value in (("placement", placement), ("prefix_index", prefix_index),
-                            ("prefix_kv", prefix_kv), ("paging", paging or None)):
+                            ("paging", paging or None)):
             if value is not None:
                 raise NotImplementedError(f"{name} is not ported to the PyTorch engine yet")
         self.model = model
@@ -92,7 +105,12 @@ class DecodeEngine:
         self.tracer = self.scheduler.tracer
         self.eos = eos
         self.slots = SlotCache.zeros(model, n_slots, cache_len)
+        if prefix_kv is True:
+            prefix_kv = PrefixKVStore()
+        self.prefix_kv = prefix_kv
         self.prefill_positions = 0
+        self.reused_positions = 0
+        self.kv_deposits = 0
         self.tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=model.device)
         self.active_req: dict[int, Request] = {}
         self.domain_switch_cost = domain_switch_cost
@@ -106,7 +124,7 @@ class DecodeEngine:
                 model, cache_len=cache_len, pack_width=pack_width or n_slots,
             )
             # every bucket runs once here, none first in the serving loop
-            self.batcher.warm(params)
+            self.batcher.warm(params, cont=self.prefix_kv is not None)
 
     @property
     def compile_counts(self) -> dict:
@@ -171,13 +189,16 @@ class DecodeEngine:
             if req is None:
                 break
             slot = self._claim_and_charge(req, self.scheduler.last_admit_distance)
-            logits, cache = self._prefill(self.params, {"tokens": np.asarray(req.prompt)[None]})
-            self.prefill_positions += len(req.prompt)
+            p0, r0 = self.prefill_positions, self.reused_positions
+            logits, cache = self._prefill_reuse(req.prompt, req.matched_len)
             if self.tracer:
+                computed = self.prefill_positions - p0
+                reused = self.reused_positions - r0
+                kind = "reuse" if computed == 0 else ("cont" if reused else "fresh")
                 now = self.scheduler.now
                 self.tracer.span(
                     "prefill", req.rid, now, now,
-                    kind="fresh", computed=len(req.prompt), reused=0,
+                    kind=kind, computed=computed, reused=reused,
                 )
                 self.tracer.begin("decode", req.rid, now)
             self.slots.insert(slot, cache)
@@ -187,37 +208,194 @@ class DecodeEngine:
             self.active_req[slot] = req
 
     def _admit_packed(self):
-        """Packed admission: at most one packed prefill call per ``step``;
-        grants beyond ``pack_width`` stay queued for the next tick."""
+        """Packed admission: at most one packed prefill call (plus at most
+        one continuation call when a prefix-KV store is wired) per ``step``;
+        grants beyond ``pack_width`` stay queued for the next tick.  Store
+        hits ride the continuation pack, boundary plants ride the fresh pack
+        as extra rows, and ``prefill_positions``/``reused_positions`` charge
+        what the per-request path would."""
         k = min(self.slots.n_free, self.batcher.pack_width)
         if k <= 0:
             return
         reqs = self.scheduler.next_batch(k)
         if not reqs:
             return
-        fresh = [
+        store = self.prefix_kv
+        admitted = [
             (req, self._claim_and_charge(req, dist))
             for req, dist in zip(reqs, self.scheduler.last_batch_distances)
         ]
-        logits, cache = self.batcher.prefill(self.params, [req.prompt for req, _ in fresh])
-        nxt = torch.argmax(logits, dim=-1)
-        for i, (req, slot) in enumerate(fresh):
-            self.slots.insert_row(slot, cache, i)
-            self.prefill_positions += len(req.prompt)
+        fresh = []   # (req, slot, boundary-plant hint)
+        cont = []    # (req, slot, matched, stored cache)
+        ready = []   # (req, slot, stored logits): whole prompt cached
+        if store is None:
+            fresh = [(req, slot, 0) for req, slot in admitted]
+        else:
+            for req, slot in admitted:
+                reuse = store.longest(req.prompt)
+                if reuse is not None:
+                    matched, cache, logits = reuse
+                    self.reused_positions += matched
+                    if matched == len(req.prompt):
+                        self.slots.insert(slot, cache)  # a copy into the lane
+                        store.put([int(t) for t in req.prompt], cache, logits)
+                        ready.append((req, slot, logits))
+                    else:
+                        cont.append((req, slot, matched, cache))
+                else:
+                    hint = max(int(req.matched_len), store.common_run(req.prompt))
+                    if hint < store.min_plant or hint > len(req.prompt):
+                        hint = 0
+                    fresh.append((req, slot, hint))
+
+        assign = []  # (req, slot, device first-token scalar)
+        if fresh:
+            rows = [req.prompt for req, _, _ in fresh]
+            # boundary plants ride the same pack as extra rows when there is
+            # room; their positions replicate the full row's prefix, so they
+            # are not charged again
+            plant = []
+            for req, _, hint in fresh:
+                if hint and len(rows) < self.batcher.pack_width:
+                    plant.append((len(rows), [int(t) for t in req.prompt[:hint]]))
+                    rows.append(req.prompt[:hint])
+            logits, cache = self.batcher.prefill(self.params, rows)
+            nxt = torch.argmax(logits, dim=-1)
+            for i, (req, slot, _hint) in enumerate(fresh):
+                self.slots.insert_row(slot, cache, i)
+                self.prefill_positions += len(req.prompt)
+                if self.tracer:
+                    now = self.scheduler.now
+                    self.tracer.span(
+                        "prefill", req.rid, now, now,
+                        kind="fresh", computed=len(req.prompt), reused=0,
+                    )
+                assign.append((req, slot, nxt[i]))
+                if store is not None:
+                    single = self.slots.fit_single(self.batcher.extract_row(cache, i))
+                    store.put([int(t) for t in req.prompt], single, logits[i : i + 1])
+            for i, boundary in plant:
+                single = self.slots.fit_single(self.batcher.extract_row(cache, i))
+                store.put(boundary, single, logits[i : i + 1])
+        if cont:
+            rows = [c for _, _, _, c in cont]
+            suffixes = [req.prompt[matched:] for req, _, matched, _ in cont]
+            logits, cache = self.batcher.continue_rows(self.params, rows, suffixes)
+            nxt = torch.argmax(logits, dim=-1)
+            for i, (req, slot, matched, _c) in enumerate(cont):
+                self.slots.insert_row(slot, cache, i)
+                self.prefill_positions += len(req.prompt) - matched
+                if self.tracer:
+                    now = self.scheduler.now
+                    self.tracer.span(
+                        "prefill", req.rid, now, now, kind="cont",
+                        computed=len(req.prompt) - matched, reused=matched,
+                    )
+                assign.append((req, slot, nxt[i]))
+                single = self.slots.fit_single(self.batcher.extract_row(cache, i))
+                store.put([int(t) for t in req.prompt], single, logits[i : i + 1])
+        for req, slot, logits in ready:
             if self.tracer:
                 now = self.scheduler.now
                 self.tracer.span(
                     "prefill", req.rid, now, now,
-                    kind="fresh", computed=len(req.prompt), reused=0,
+                    kind="reuse", computed=0, reused=len(req.prompt),
                 )
+            assign.append((req, slot, torch.argmax(logits[0])))
+
         # ONE host transfer for every admitted request's first token
-        toks = nxt[: len(fresh)].tolist()
-        for (req, slot), tok in zip(fresh, toks):
+        toks = torch.stack([t for _, _, t in assign]).tolist() if assign else []
+        for (req, slot, _), tok in zip(assign, toks):
             req.out.append(tok)
             self.tokens[slot, 0] = tok
             self.active_req[slot] = req
             if self.tracer:
                 self.tracer.begin("decode", req.rid, self.scheduler.now)
+
+    def _prefill_reuse(self, prompt, hint_len: int = 0):
+        """Prefill ``prompt``, resuming from the longest stored prefix cache
+        when a ``PrefixKVStore`` is wired: only the uncached suffix is
+        computed, one ``decode_step`` per suffix token, over a CLONE of the
+        stored cache (``decode_step`` writes the cache it is handed, and the
+        entry must stay as stored).  ``prefill_positions`` counts positions
+        actually computed.
+
+        ``hint_len`` (a request's ``matched_len``; 0 without a prefix index)
+        or the store's longest common run against a stored key, whichever is
+        longer, splits a miss at that boundary: the boundary cache is
+        deposited, so the next prompt sharing the run resumes from it."""
+        store = self.prefix_kv
+        if store is None:
+            logits, cache = self._prefill(self.params, {"tokens": np.asarray(prompt, np.int32)[None]})
+            self.prefill_positions += len(prompt)
+            return logits, cache
+        reuse = store.longest(prompt)
+        if reuse is None:
+            hint_len = max(int(hint_len), store.common_run(prompt))
+            if hint_len < store.min_plant:
+                hint_len = 0
+        if reuse is not None:
+            matched, cache, logits = reuse
+            self.reused_positions += matched
+        elif 0 < hint_len <= len(prompt):
+            boundary = [int(t) for t in prompt[:hint_len]]
+            logits, cache = self._prefill(self.params, {"tokens": np.asarray(boundary, np.int32)[None]})
+            # every stored entry shares one (batch=1, cache_len) shape
+            cache = self.slots.fit_single(cache)
+            store.put(boundary, cache, logits)
+            matched = hint_len
+            self.prefill_positions += hint_len
+        else:
+            matched = 0
+        if matched == 0:
+            logits, cache = self._prefill(self.params, {"tokens": np.asarray(prompt, np.int32)[None]})
+            cache = self.slots.fit_single(cache)
+            self.prefill_positions += len(prompt)
+        elif matched < len(prompt):
+            cache = _clone(cache)
+            for i in range(matched, len(prompt)):
+                tok = torch.tensor([[int(prompt[i])]], dtype=torch.int32, device=self.model.device)
+                logits, cache = self._step(self.params, cache, tok)
+            self.prefill_positions += len(prompt) - matched
+        store.put([int(t) for t in prompt], cache, logits)
+        return logits, cache
+
+    # -- KV shipping -------------------------------------------------------------
+    def export_kv(self, prompt):
+        """The longest stored prefix cache for ``prompt``, for a transfer to
+        another engine -> ``(tokens, (cache, logits))``, or None when no
+        store is wired or nothing prefixes the prompt.  The bundle is the
+        store's own tensors: the receiver copies them (``import_kv``), and
+        nothing writes them."""
+        if self.prefix_kv is None:
+            return None
+        matched = self.prefix_kv.peek(prompt)
+        if matched <= 0:
+            return None
+        key = tuple(int(t) for t in prompt)[:matched]
+        entry = self.prefix_kv.get(key)
+        if entry is None:
+            return None
+        return key, entry
+
+    def import_kv(self, tokens, payload) -> bool:
+        """Land a shipped prefix bundle in this engine's store (refitted to
+        this engine's ``cache_len``, a copy), so the next admission of a
+        prompt extending ``tokens`` resumes from it.  Refuses (returns False)
+        when no store is wired or the bundle cannot fit ``cache_len``; the
+        caller then re-prefills."""
+        if self.prefix_kv is None:
+            return False
+        cache, logits = payload
+        if len(tokens) >= self.cache_len:
+            return False
+        self.prefix_kv.put(list(tokens), self.slots.fit_single(cache), logits)
+        return True
+
+    def peek_match(self, prompt) -> int:
+        """Tokens of ``prompt`` resumable from the store (0 without one),
+        side-effect-free."""
+        return self.prefix_kv.peek(prompt) if self.prefix_kv is not None else 0
 
     # -- federation export -----------------------------------------------------
     def summary(self, top_k: int = 8) -> dict:
@@ -255,6 +433,20 @@ class DecodeEngine:
             past_len = int(pos_host[slot]) >= self.cache_len - 1
             if req.done or hit_eos or past_len:
                 req.finish_t = self.scheduler.now
+                deposits_before = self.kv_deposits
+                if self.prefix_kv is not None:
+                    # retirement-time deposit: the slot's cache now encodes
+                    # prompt + out[:-1] (the final token was emitted, never
+                    # fed), and this step's logits row predicts out[-1]; a
+                    # follow-up extending prompt + output resumes from here.
+                    # extract copies the lane, so the entry is the store's.
+                    seq = [int(t) for t in req.prompt] + [int(t) for t in req.out[:-1]]
+                    pos = int(pos_host[slot])
+                    if 0 < pos < self.cache_len and pos == len(seq):
+                        self.prefix_kv.put(
+                            seq, self.slots.extract(slot), logits[slot : slot + 1]
+                        )
+                        self.kv_deposits += 1
                 if self.tracer:
                     now = self.scheduler.now
                     self.tracer.end(
@@ -262,6 +454,8 @@ class DecodeEngine:
                         tokens=len(req.out),
                     )
                     root = self.tracer.open_span(req.rid, "request")
+                    if self.kv_deposits > deposits_before:
+                        self.tracer.event(root, "deposit", now)
                     self.tracer.event(root, "retire", now, slot=slot)
                     self.tracer.end(root, now)
                 self.slots.release(slot)
@@ -277,3 +471,13 @@ class DecodeEngine:
             self.step()
             ticks += 1
         return requests
+
+
+def _clone(node):
+    """A copy of a cache tree (a dict of tuples of tensors, ``pos``) that
+    shares no storage with it."""
+    if isinstance(node, torch.Tensor):
+        return node.clone()
+    if isinstance(node, dict):
+        return {key: _clone(n) for key, n in node.items()}
+    return tuple(_clone(n) for n in node)

@@ -39,6 +39,38 @@ def _tensors(cache: dict) -> list:
             for t in _leaves(cache[key], lambda x: isinstance(x, torch.Tensor))]
 
 
+def leaf_axes(cache: dict, logical: dict) -> list:
+    """Per tensor of ``cache``, in ``_tensors`` order: (batch axis, KV
+    sequence axis of the lane or None), read from the model's
+    ``cache_logical`` tree."""
+    axes = []
+    for key in cache:
+        if key == "pos":
+            continue
+        for log in _leaves(logical[key], lambda x: isinstance(x[0], (str, type(None)))):
+            ax = log.index("batch")
+            seq = log.index("kv_seq") if "kv_seq" in log else None
+            axes.append((ax, None if seq is None else seq - (seq > ax)))
+    if len(axes) != len(_tensors(cache)):
+        raise ValueError("cache_logical does not mirror the cache")
+    return axes
+
+
+def rebuild(leaves: list, like: dict) -> dict:
+    """``leaves`` (in ``_tensors`` order) in the tree structure of ``like``,
+    without ``pos``."""
+    it = iter(leaves)
+    return {key: _build(node, it) for key, node in like.items() if key != "pos"}
+
+
+def _build(node, it):
+    # a module-level recursion: a nested one would hold ``it``, and with it
+    # the leaves, in a reference cycle until the next garbage collection
+    if isinstance(node, torch.Tensor):
+        return next(it)
+    return tuple(_build(n, it) for n in node)
+
+
 def _fit_into(dst: torch.Tensor, src: torch.Tensor, seq_ax: int | None) -> None:
     """Copy lane ``src`` into lane ``dst``.  A KV lane (``seq_ax`` given) is
     trimmed or zero-padded along its sequence axis to the destination's
@@ -57,19 +89,7 @@ class SlotCache:
     def __init__(self, cache: dict, logical: dict, n_slots: int):
         self.cache = cache
         self.n_slots = n_slots
-        # per leaf, in _tensors order: (batch axis, KV sequence axis of the
-        # lane or None)
-        axes = []
-        for key in cache:
-            if key == "pos":
-                continue
-            for log in _leaves(logical[key], lambda x: isinstance(x[0], (str, type(None)))):
-                ax = log.index("batch")
-                seq = log.index("kv_seq") if "kv_seq" in log else None
-                axes.append((ax, None if seq is None else seq - (seq > ax)))
-        if len(axes) != len(_tensors(cache)):
-            raise ValueError("cache_logical does not mirror the cache")
-        self.axes = axes
+        self.axes = leaf_axes(cache, logical)
         self.owner: dict[int, object] = {}
         # placement is not ported: every claim is local (the engine charges
         # migration stalls from this, as it does in the reference)
@@ -101,20 +121,10 @@ class SlotCache:
         self.cache["pos"][slot] = 0
         heapq.heappush(self._free, slot)
 
-    def _rebuild(self, leaves: list, like: dict) -> dict:
-        """``leaves`` (in _tensors order) in the tree structure of ``like``."""
-        it = iter(leaves)
-
-        def build(node):
-            if isinstance(node, torch.Tensor):
-                return next(it)
-            return tuple(build(n) for n in node)
-
-        return {key: build(node) for key, node in like.items() if key != "pos"}
-
     def fit_single(self, single_cache: dict) -> dict:
         """A (batch=1) cache with every KV leaf padded/trimmed to this
-        cache's sequence length."""
+        cache's sequence length: new tensors, ``pos`` included, that share
+        no storage with ``single_cache`` (what the prefix-KV store keeps)."""
         out = []
         for dst, src, (ax, seq) in zip(_tensors(self.cache), _tensors(single_cache), self.axes):
             shape = list(dst.shape)
@@ -122,8 +132,8 @@ class SlotCache:
             t = torch.zeros(shape, dtype=dst.dtype, device=dst.device)
             _fit_into(t.select(ax, 0), src.select(ax, 0), seq)
             out.append(t)
-        new = self._rebuild(out, self.cache)
-        new["pos"] = torch.as_tensor(single_cache["pos"]).to(torch.int32)
+        new = rebuild(out, self.cache)
+        new["pos"] = torch.as_tensor(single_cache["pos"]).to(torch.int32, copy=True)
         return new
 
     def extract(self, slot: int) -> dict:
@@ -137,7 +147,7 @@ class SlotCache:
                 "(released slots hold stale or zero KV)"
             )
         out = [t.narrow(ax, slot, 1).clone() for t, (ax, _) in zip(_tensors(self.cache), self.axes)]
-        new = self._rebuild(out, self.cache)
+        new = rebuild(out, self.cache)
         new["pos"] = self.cache["pos"][slot].clone()
         return new
 

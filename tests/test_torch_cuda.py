@@ -1,4 +1,5 @@
-"""The RG-LRU scan and SSD intra-chunk kernels against their plain versions on the card.
+"""The RG-LRU scan and SSD intra-chunk kernels against their plain versions on the card,
+and prefix-KV reuse (continuation prefill, the engine's store) on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so the card's machine,
@@ -17,7 +18,13 @@ Inputs come from numpy with a seed.  Tolerances, float32:
     a 128-step chunk with dA in [-1.6, 0], where one ulp (~1e-5) moves a
     decay factor by ~1e-5 relative; the plain version in float32 against
     float64 at mamba2-130m's shape (a CPU run) is off by up to 5.7e-4 on
-    outputs up to ~200.
+    outputs up to ~200;
+  * continuation prefill on the card against the same call on the CPU
+    (reduced granite, float32): atol and rtol 1e-4.  The seeded prefixes come
+    from each device's own prefill, the flash kernel's float32 instance on
+    the card and the plain version on the CPU, and the products sum in other
+    orders on the two devices (~1e-6 relative), which the two layers carry
+    to about 1e-5.
 """
 
 import numpy as np
@@ -27,10 +34,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import linear_scan, linear_scan_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402
 from repro_torch.models import rglru, ssm  # noqa: E402
 from repro_torch.models.common import ParamBuilder  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serving import CNAScheduler, DecodeEngine, Request  # noqa: E402
+from repro_torch.serving.batching import PrefillBatcher  # noqa: E402
+from repro_torch.serving.kvcache import SlotCache, _tensors  # noqa: E402
 
 ATOL, RTOL = 1e-5, 1e-4
 SCAN_SHAPES = [  # (B, S, W): ragged S and W; the last is recurrentgemma-2b's longest prefill
@@ -232,3 +244,82 @@ def test_ssd_block_launches_the_kernel_on_card(cuda_device):
     assert gs.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=SSD_ATOL, rtol=SSD_RTOL)
     np.testing.assert_allclose(gs.cpu().numpy(), ws.numpy(), atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+CONT_TOL = 1e-4
+CONT_CACHE_LEN = 64
+
+
+def _granite(device):
+    """Reduced granite in float32 with the same weights on ``device``."""
+    cfg = get_reduced_config("granite_3_8b").replace(dtype="float32")
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [move(v) for v in node]
+        return node.to(device)
+
+    return cfg, build_model(cfg, device=device), move(params)
+
+
+@pytest.mark.cuda
+def test_prefill_cont_on_card_matches_cpu(cuda_device):
+    """Seeded rows extended by ragged suffixes (one row without a suffix):
+    logits of the rows with a suffix, every KV leaf and ``pos`` on the card
+    against the CPU; no flash launch in the continuation."""
+    rng = np.random.default_rng(3)
+    vocab = get_reduced_config("granite_3_8b").vocab
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in (30, 9, 40, 7)]
+    splits = (12, 1, 33, 7)
+    out = []
+    for device in (torch.device("cpu"), cuda_device):
+        cfg, model, params = _granite(device)
+        slots = SlotCache.zeros(model, 4, CONT_CACHE_LEN)
+        rows = [slots.fit_single(model.prefill(params, {"tokens": p[:m][None]})[1])
+                for p, m in zip(prompts, splits)]
+        batcher = PrefillBatcher(model, cache_len=CONT_CACHE_LEN, pack_width=4)
+        before = fa_ops.flash_attention.launches
+        logits, cache = batcher.continue_rows(params, rows, [p[m:] for p, m in zip(prompts, splits)])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa_ops.flash_attention.launches == before
+        out.append((logits.cpu(), [t.cpu() for t in _tensors(cache)], cache["pos"].cpu()))
+    (cl, ct, cp), (gl, gt, gp) = out
+    assert torch.equal(cp, gp) and cp.tolist() == [30, 9, 40, 7]
+    np.testing.assert_allclose(gl[:3].numpy(), cl[:3].numpy(), atol=CONT_TOL, rtol=CONT_TOL)
+    for g, c in zip(gt, ct):
+        np.testing.assert_allclose(g.numpy(), c.numpy(), atol=CONT_TOL, rtol=CONT_TOL)
+
+
+@pytest.mark.cuda
+def test_prefix_kv_engine_on_card(cuda_device):
+    """A batched prefix-KV engine on the card, shared-prefix traffic with
+    repeats and follow-ups: every fresh pack launches the flash kernel once
+    a layer and the continuation packs launch none; every entry stored
+    after the first wave is bitwise unchanged after the second."""
+    cfg, model, params = _granite(cuda_device)
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab, 12).astype(np.int32)
+    first = [Request(rid=i, prompt=np.concatenate([system, rng.integers(0, cfg.vocab, 3 + i)]).astype(np.int32),
+                     max_new=4, domain=i % 2) for i in range(4)]
+    first += [Request(rid=4 + i, prompt=first[i].prompt.copy(), max_new=4) for i in range(2)]
+    before = fa_ops.flash_attention.launches
+    eng = DecodeEngine(model, params, n_slots=4, cache_len=CONT_CACHE_LEN, prefix_kv=True,
+                       batching=True, scheduler=CNAScheduler())
+    eng.run(first)
+    snap = [(cache, [t.clone() for t in _tensors(cache)], logits, logits.clone())
+            for cache, logits in eng.prefix_kv._lru.values()]
+    follow = [Request(rid=10 + i, prompt=np.concatenate(
+        [r.prompt, np.asarray(r.out, np.int32), rng.integers(0, cfg.vocab, 5).astype(np.int32)]),
+        max_new=4) for i, r in enumerate(first[:3])]
+    eng.run(follow)
+    torch.cuda.synchronize()
+    assert all(len(r.out) == 4 for r in first + follow)
+    assert eng.batcher.cont.calls > len(eng.batcher.buckets)  # continuation packs served
+    assert fa_ops.flash_attention.launches - before == cfg.n_layers * eng.batcher.packed.calls
+    assert eng.reused_positions > 0 and eng.kv_deposits == len(first) + len(follow)
+    for cache, ts, logits, lg in snap:
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(cache), ts)) and torch.equal(logits, lg)
