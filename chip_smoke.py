@@ -16,6 +16,10 @@ with random weights from a seed, drawn on the card:
     ``prefix_kv=True`` on shared-prefix traffic in two waves: full hits,
     boundary plants, and follow-ups resumed from retirement deposits through
     continuation prefill (plain attention, no kernel, as in the reference);
+    then with NUMA-homed slots (``placement="nearest_spill"`` over
+    ``pod(2, 2)``): the same 16 requests, whose tokens must not change, and
+    the shared-prefix waves with homes derived by the prefix index, whose
+    decisions must equal a 2-layer host oracle's;
   * full-width recurrentgemma-2b through ``DecodeEngine(batching=False)``
     (per-request prefill; the RG-LRU scan kernel in its 18 recurrent layers,
     the flash kernel at head dim 256 with a 2048-token window in its 8
@@ -133,6 +137,11 @@ PKV_FOLLOW, PKV_EXTEND = 4, (32, 129)
 # it, the longest 2000 (padded to 16 chunks), and 13 drawn by numpy's
 # default_rng(0), all shuffled
 M2_REQUESTS, M2_PROMPTS, M2_FIXED, M2_CHUNK = 16, (64, 2000), (77, 1024, 2000), 128
+# phase_placement: granite's slots homed over pod(2, 2) (8 slots, 2 a
+# domain) under nearest_spill; its host oracle is granite at 2 layers, d 64,
+# float32, with the full vocabulary, so the card's prompts are its prompts
+PL_PODS = (2, 2)
+PL_ORACLE = dict(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128, dtype="float32")
 
 
 def log(msg: str) -> None:
@@ -640,7 +649,9 @@ def phase_serve(torch, np, counters, cfg, device, *, batching, lengths, n_slots=
         raise AssertionError("a first-token logit is not finite")
     longest = max(reqs, key=lambda r: len(r.prompt))
     return {"launches": launches, "prefill_calls": warm_calls + len(timed.ms),
-            "model": model, "params": params, "prompt": longest.prompt}
+            "model": model, "params": params, "prompt": longest.prompt,
+            "requests": [(r.rid, r.prompt, r.domain) for r in reqs],
+            "tokens": {r.rid: list(r.out) for r in reqs}}
 
 
 def _by_bucket(timed) -> dict:
@@ -671,6 +682,37 @@ def _run_wave(torch, np, eng, reqs, sync) -> dict:
             "tokens_per_s": sum(len(r.out) for r in reqs) / wall,
             "ttft_p50_ms": float(np.percentile(waits, 50)),
             "ttft_p99_ms": float(np.percentile(waits, 99))}
+
+
+def pkv_wave1(np, cfg, Request, max_new, derived=False):
+    """Wave 1 of the prefix-KV workload (``PKV_*``) and the generator that
+    draws wave 2.  ``derived``: every request has ``domain=None`` (the
+    domains are drawn all the same, so the tokens do not change)."""
+    rng = np.random.default_rng(42)
+    system = rng.integers(0, cfg.vocab, PKV_SYSTEM).astype(np.int32)
+    wave1 = []
+    for i in range(PKV_SHARED):
+        sfx = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_SUFFIX))).astype(np.int32)
+        dom = int(rng.integers(0, 2))
+        wave1.append(Request(rid=i, prompt=np.concatenate([system, sfx]), max_new=max_new,
+                             domain=None if derived else dom))
+    for i in range(PKV_REPEATS):
+        wave1.append(Request(rid=PKV_SHARED + i, prompt=wave1[i].prompt.copy(), max_new=max_new,
+                             domain=None if derived else wave1[i].domain))
+    return rng, wave1
+
+
+def pkv_wave2(np, rng, cfg, Request, wave1, max_new, derived=False):
+    """Wave 2: each of four distinct wave-1 requests' prompt + output,
+    extended by new tokens (partial hits on the retirement deposits)."""
+    wave2 = []
+    for i in range(PKV_FOLLOW):
+        src = wave1[2 * i]  # four of the distinct prompts
+        new = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_EXTEND))).astype(np.int32)
+        wave2.append(Request(rid=100 + i, prompt=np.concatenate(
+            [src.prompt, np.asarray(src.out, np.int32), new]), max_new=max_new,
+            domain=None if derived else src.domain))
+    return wave2
 
 
 def _cont_against_fresh(torch, model, params, prompts, cache_len, pack):
@@ -722,16 +764,7 @@ def phase_prefix_kv(torch, np, fa_ops, cfg, served, device) -> dict:
 
     model, params = served["model"], served["params"]
     max_new, cache_len, n_slots = 16, 1024, 8
-    rng = np.random.default_rng(42)
-    system = rng.integers(0, cfg.vocab, PKV_SYSTEM).astype(np.int32)
-    wave1 = []
-    for i in range(PKV_SHARED):
-        sfx = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_SUFFIX))).astype(np.int32)
-        wave1.append(Request(rid=i, prompt=np.concatenate([system, sfx]), max_new=max_new,
-                             domain=int(rng.integers(0, 2))))
-    for i in range(PKV_REPEATS):
-        wave1.append(Request(rid=PKV_SHARED + i, prompt=wave1[i].prompt.copy(), max_new=max_new,
-                             domain=wave1[i].domain))
+    rng, wave1 = pkv_wave1(np, cfg, Request, max_new)
     torch.cuda.reset_peak_memory_stats()
 
     # --- the path: counts set to 0 just before, read just after ---
@@ -748,12 +781,7 @@ def phase_prefix_kv(torch, np, fa_ops, cfg, served, device) -> dict:
     store = eng.prefix_kv
     snap = [(key, c, lg, [t.clone() for t in _tensors(c)] + [c["pos"].clone(), lg.clone()])
             for key, (c, lg) in store._lru.items()]
-    wave2 = []
-    for i in range(PKV_FOLLOW):
-        src = wave1[2 * i]  # four of the distinct prompts
-        new = rng.integers(0, cfg.vocab, int(rng.integers(*PKV_EXTEND))).astype(np.int32)
-        wave2.append(Request(rid=100 + i, prompt=np.concatenate(
-            [src.prompt, np.asarray(src.out, np.int32), new]), max_new=max_new, domain=src.domain))
+    wave2 = pkv_wave2(np, rng, cfg, Request, wave1, max_new)
     w2 = _run_wave(torch, np, eng, wave2, sync)
     launches = fa_ops.flash_attention.launches
     # --- end of the path ---
@@ -840,6 +868,200 @@ def phase_prefix_kv(torch, np, fa_ops, cfg, served, device) -> dict:
     if not ok:
         raise AssertionError(f"{cfg.name}: continuation and fresh prefill disagree: {worst}")
     return {"launches": launches}
+
+
+def _placed_engine(model, params, **kw):
+    """``DecodeEngine(batching=True, n_slots=8, cache_len=1024)`` with its
+    slots homed over ``pod(*PL_PODS)`` under ``nearest_spill``."""
+    from repro_torch.core.topology import pod
+    from repro_torch.serving import CNAScheduler, DecodeEngine
+
+    return DecodeEngine(model, params, batching=True, n_slots=8, cache_len=1024,
+                        scheduler=CNAScheduler(topology=pod(*PL_PODS)),
+                        placement="nearest_spill", **kw)
+
+
+def _derived_run(torch, np, model, params, cfg, sync) -> dict:
+    """The ``PKV_*`` waves with ``domain=None`` through ``_placed_engine``
+    with the prefix index and the prefix-KV store: wave 1, a snapshot of the
+    store and of the telemetry's prefix counters, wave 2."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.kvcache import _tensors
+
+    max_new = 16
+    rng, wave1 = pkv_wave1(np, cfg, Request, max_new, derived=True)
+    t_build = time.perf_counter()
+    eng = _placed_engine(model, params, prefix_index=True, prefix_kv=True)
+    sync()
+    warm_s = time.perf_counter() - t_build
+    packed = eng.batcher.packed = TimedCall(torch, eng.batcher.packed, cfg.vocab, sync, True)
+    cont = eng.batcher.cont = TimedCall(torch, eng.batcher.cont, cfg.vocab, sync, True)
+    w1 = _run_wave(torch, np, eng, wave1, sync)
+    snap = [(key, c, lg, [t.clone() for t in _tensors(c)] + [c["pos"].clone(), lg.clone()])
+            for key, (c, lg) in eng.prefix_kv._lru.items()]
+    tel = eng.slots.telemetry
+    hits1 = (tel.prefix_hit_tokens, tel.prefix_lookup_tokens)
+    wave2 = pkv_wave2(np, rng, cfg, Request, wave1, max_new, derived=True)
+    w2 = _run_wave(torch, np, eng, wave2, sync)
+    return {"eng": eng, "reqs": wave1 + wave2, "waves": (w1, w2), "warm_s": warm_s,
+            "packed": packed, "cont": cont, "snap": snap, "hits1": hits1, "max_new": max_new}
+
+
+def _decisions(run) -> dict:
+    """What the engine decided in ``_derived_run``: none of it reads a number
+    the model computes (``eos=None``, fixed ``max_new``)."""
+    eng = run["eng"]
+    tel = eng.slots.telemetry
+    return {
+        "sim_time": eng.sim_time, "prefill_positions": eng.prefill_positions,
+        "reused_positions": eng.reused_positions, "kv_deposits": eng.kv_deposits,
+        "store_hits": eng.prefix_kv.hits, "store_misses": eng.prefix_kv.misses,
+        "compile_counts": eng.compile_counts,
+        "telemetry": {k: getattr(tel, k) for k in (
+            "placements", "local_placements", "spills", "sibling_spills", "cross_spills",
+            "migration_cycles", "derived_homes", "sheds", "prefix_hit_tokens",
+            "prefix_lookup_tokens", "per_domain_placements")},
+        "homes": [(r.rid, r.domain, r.matched_len, r.admit_t) for r in run["reqs"]],
+    }
+
+
+def phase_placement(torch, np, fa_ops, cfg, served) -> dict:
+    """Granite's serving path with NUMA-homed slots, on the model and weights
+    ``phase_serve`` built, in three parts.
+
+    (a) ``phase_serve``'s 16 requests through ``_placed_engine``.  Held:
+    every request's tokens equal its tokens in ``phase_serve`` (placement
+    moves lanes, never results); placements = releases = 16, local
+    placements + spills = placements, one handover sample an admission,
+    every domain's occupancy 0 at the end; flash launched once a layer in
+    every packed call.
+
+    (b) The ``PKV_*`` waves with ``domain=None`` through the same engine
+    with ``prefix_index=True, prefix_kv=True``.  Held: a derived home for
+    every request; a prefix hit rate above 0 in wave 2; computed + resumed
+    positions = the prompts' lengths; flash once a layer in every packed
+    call and never in a continuation; every entry stored after wave 1
+    bitwise unchanged after wave 2; every request retires with 16 tokens
+    and finite first-token logits.
+
+    (c) (b) again on the CPU with granite at ``PL_ORACLE``'s size and the
+    full vocabulary.  Held: ``sim_time``, the position, store and deposit
+    counts, ``compile_counts``, the placement telemetry and every request's
+    home, matched run and admission tick equal the card's.
+
+    The flash count is set to 0 just before each of (a) and (b) builds its
+    engine and read just after its last request retires."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import Request
+    from repro_torch.serving.kvcache import _tensors
+
+    def sync():
+        torch.cuda.synchronize()
+
+    model, params = served["model"], served["params"]
+    reqs = [Request(rid=rid, prompt=prompt.copy(), max_new=16, domain=dom)
+            for rid, prompt, dom in served["requests"]]
+
+    # --- (a): counts set to 0 just before, read just after ---
+    fa_ops.flash_attention.launches = 0
+    t_build = time.perf_counter()
+    eng = _placed_engine(model, params)
+    sync()
+    warm_s = time.perf_counter() - t_build
+    packed = eng.batcher.packed = TimedCall(torch, eng.batcher.packed, cfg.vocab, sync, True)
+    wa = _run_wave(torch, np, eng, reqs, sync)
+    launches_a = fa_ops.flash_attention.launches
+    # --- end of (a) ---
+    tel = eng.slots.telemetry
+    log(f"[placement] {cfg.name} (a) pod{PL_PODS} nearest_spill warm={warm_s:.2f}s "
+        f"requests={wa['requests']} tokens={wa['tokens']} wall_s={wa['wall_s']!r} "
+        f"tokens_per_s={wa['tokens_per_s']!r} ttft_p50_ms={wa['ttft_p50_ms']!r} "
+        f"ttft_p99_ms={wa['ttft_p99_ms']!r}")
+    log(f"[placement] {cfg.name} (a) sim_time={eng.sim_time} placements={tel.placements} "
+        f"local={tel.local_placements} locality={tel.locality!r} spills={tel.spills} "
+        f"(sibling {tel.sibling_spills}, cross {tel.cross_spills}) migration_cycles="
+        f"{tel.migration_cycles} releases={tel.releases} handover_samples={tel.handover_samples} "
+        f"occupancy={tel.per_domain_occupancy} flash launches={launches_a} "
+        f"packed calls={packed.calls} compile_counts={eng.compile_counts}")
+    differ = [r.rid for r in reqs if list(r.out) != served["tokens"][r.rid]]
+    log(f"[placement] {cfg.name} (a) requests whose tokens equal phase_serve's: "
+        f"{len(reqs) - len(differ)}/{len(reqs)}")
+    if differ:
+        raise AssertionError(f"placement changed the tokens of requests {differ}")
+    n = len(reqs)
+    if not (tel.placements == tel.releases == n and tel.handover_samples == n
+            and tel.local_placements + tel.spills == tel.placements
+            and not any(tel.per_domain_occupancy.values())):
+        raise AssertionError(f"placement telemetry does not balance: {tel}")
+    if launches_a != cfg.n_layers * packed.calls:
+        raise AssertionError(f"(a) flash launches {launches_a} != {cfg.n_layers} layers x "
+                             f"{packed.calls} packed calls")
+    del eng, packed
+
+    # --- (b): counts set to 0 just before, read just after ---
+    fa_ops.flash_attention.launches = 0
+    run = _derived_run(torch, np, model, params, cfg, sync)
+    launches_b = fa_ops.flash_attention.launches
+    # --- end of (b) ---
+    eng, tel = run["eng"], run["eng"].slots.telemetry
+    packed, cont = run["packed"], run["cont"]
+    for name, w in zip(("wave 1", "wave 2"), run["waves"]):
+        log(f"[placement] {cfg.name} (b) derived homes + index + store, {name}: "
+            f"requests={w['requests']} tokens={w['tokens']} wall_s={w['wall_s']!r} "
+            f"tokens_per_s={w['tokens_per_s']!r} ttft_p50_ms={w['ttft_p50_ms']!r} "
+            f"ttft_p99_ms={w['ttft_p99_ms']!r}")
+    hit1, look1 = run["hits1"]
+    rate2 = (tel.prefix_hit_tokens - hit1) / max(1, tel.prefix_lookup_tokens - look1)
+    log(f"[placement] {cfg.name} (b) warm={run['warm_s']:.2f}s derived_homes={tel.derived_homes} "
+        f"prefix_hit_rate wave 1 {hit1 / max(1, look1)!r} wave 2 {rate2!r} locality="
+        f"{tel.locality!r} spills={tel.spills} (sibling {tel.sibling_spills}, cross "
+        f"{tel.cross_spills}) migration_cycles={tel.migration_cycles} sheds={tel.sheds} "
+        f"sim_time={eng.sim_time} prefill_positions={eng.prefill_positions} "
+        f"reused_positions={eng.reused_positions} kv_deposits={eng.kv_deposits} store hits="
+        f"{eng.prefix_kv.hits} flash launches={launches_b} packed calls={packed.calls} "
+        f"continuation calls={cont.calls} compile_counts={eng.compile_counts}")
+    reqs = run["reqs"]
+    if not all(len(r.out) == run["max_new"] for r in reqs):
+        raise AssertionError(f"(b) not every request retired: {[len(r.out) for r in reqs]}")
+    if not all(packed.finite + cont.finite):
+        raise AssertionError("(b) a first-token logit is not finite")
+    if tel.derived_homes != len(reqs):
+        raise AssertionError(f"(b) derived homes {tel.derived_homes} != {len(reqs)} requests")
+    if not rate2 > 0:
+        raise AssertionError("(b) wave 2 matched no cached prefix in the index")
+    total = sum(len(r.prompt) for r in reqs)
+    if eng.prefill_positions + eng.reused_positions != total:
+        raise AssertionError(f"(b) computed {eng.prefill_positions} + resumed "
+                             f"{eng.reused_positions} != {total} prompt positions")
+    if launches_b != cfg.n_layers * packed.calls:
+        raise AssertionError(f"(b) flash launches {launches_b} != {cfg.n_layers} layers x "
+                             f"{packed.calls} packed calls")
+    changed = [len(key) for key, c, lg, clones in run["snap"]
+               if not all(torch.equal(a, b) for a, b in
+                          zip(_tensors(c) + [c["pos"], lg], clones))]
+    log(f"[placement] {cfg.name} (b) store entries after wave 1: {len(run['snap'])}, bitwise "
+        f"unchanged after wave 2: {len(run['snap']) - len(changed)}")
+    if changed:
+        raise AssertionError(f"(b) stored entries of lengths {changed} changed while serving")
+    card = _decisions(run)
+    del run, eng, packed, cont
+    torch.cuda.empty_cache()
+
+    # --- (c): the host oracle ---
+    t0 = time.perf_counter()
+    ocfg = cfg.replace(**PL_ORACLE)
+    omodel = build_model(ocfg, device="cpu")
+    oparams = omodel.init(torch.Generator().manual_seed(0))
+    host = _decisions(_derived_run(torch, np, omodel, oparams, ocfg, lambda: None))
+    diff = sorted(k for k in card if card[k] != host[k])
+    log(f"[placement] {cfg.name} (c) host oracle ({ocfg.n_layers} layers, d {ocfg.d_model}, "
+        f"vocab {ocfg.vocab}, cpu) in {time.perf_counter() - t0:.1f}s: card telemetry "
+        f"{card['telemetry']} sim_time {card['sim_time']}; fields that differ from the "
+        f"host's: {diff}")
+    if diff:
+        raise AssertionError(f"(c) the card's decisions differ from the host oracle's: "
+                             f"{ {k: (card[k], host[k]) for k in diff} }")
+    return {"launches": launches_a + launches_b}
 
 
 def _check_launches(cfg, served, per_call: dict) -> None:
@@ -1106,6 +1328,7 @@ def main() -> int:
     phase_model_check(torch, gcfg, served, "cuda", fa_ref, rg_ref)
     granite_flash = served["launches"]["flash"]
     pkv = phase_prefix_kv(torch, np, fa_ops, gcfg, served, "cuda")
+    placed = phase_placement(torch, np, fa_ops, gcfg, served)
     del served
     torch.cuda.empty_cache()
     log(f"[time] granite-3-8b done at {time.perf_counter() - t0:.1f}s")
@@ -1138,6 +1361,8 @@ def main() -> int:
     kernels = [
         _entry("flash_attention_fwd", fa_src, fa_rep, granite_flash, flash["granite-3-8b"]),
         _entry("flash_attention_fwd@granite-3-8b+prefix_kv", fa_src, fa_rep, pkv["launches"],
+               flash["granite-3-8b"]),
+        _entry("flash_attention_fwd@granite-3-8b+placement", fa_src, fa_rep, placed["launches"],
                flash["granite-3-8b"]),
         _entry("flash_attention_fwd@recurrentgemma-2b", fa_src, fa_rep,
                rg_launches["flash"], flash["recurrentgemma-2b"]),

@@ -19,9 +19,14 @@ exports and imports stored prefixes (``export_kv`` / ``import_kv`` /
 the store holds is a tensor no live path writes: deposits go through
 ``SlotCache.fit_single`` or ``extract`` (copies), the continuation pack
 stacks copies, and the per-request resume loop steps a clone of the entry.
-Placement, the prefix index and paging are not ported and raise
-``NotImplementedError``; without an index, boundary plants come from the
-store's own ``common_run``.
+
+``placement`` makes the slot cache NUMA-homed over the scheduler's topology
+(``repro_torch.placement``), and ``prefix_index`` derives ``domain=None``
+homes from cached prefixes, discounts the migration charge by the matched
+run and sheds saturated homes through an adaptive controller, as in the
+reference.  All of it is host-side bookkeeping over Python ints and token
+lists: ``sim_time`` and the telemetry never read a tensor.  Paging is not
+ported and raises ``NotImplementedError``.
 
 Greedy sampling (argmax) keeps the engine deterministic for tests.
 """
@@ -35,6 +40,7 @@ import torch
 
 from .batching import CountingCall, PrefillBatcher
 from .kvcache import SlotCache
+from .prefixindex import PrefixIndex
 from .prefixkv import PrefixKVStore
 from .scheduler import CNAScheduler
 
@@ -62,7 +68,9 @@ class DecodeEngine:
     ``model`` is a ``repro_torch`` model; the engine runs on its device.
     ``prefill_positions`` / ``reused_positions`` count KV positions computed
     / resumed from stored caches, ``kv_deposits`` the retirement-time
-    deposits made back into the store."""
+    deposits made back into the store.  ``placement`` (a policy name or
+    instance) needs a topology on the scheduler; ``prefix_index`` (``True``
+    or a ``PrefixIndex``) needs placement."""
 
     def __init__(
         self,
@@ -84,10 +92,8 @@ class DecodeEngine:
         tracer=None,  # repro_torch.obs.Tracer | None (None => zero-cost off)
         paging: bool = False,
     ):
-        for name, value in (("placement", placement), ("prefix_index", prefix_index),
-                            ("paging", paging or None)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported to the PyTorch engine yet")
+        if paging:
+            raise NotImplementedError("paging is not ported to the PyTorch engine yet")
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -104,7 +110,48 @@ class DecodeEngine:
             self.scheduler.tracer = tracer
         self.tracer = self.scheduler.tracer
         self.eos = eos
-        self.slots = SlotCache.zeros(model, n_slots, cache_len)
+        if placement is not None and self.scheduler.topology is None:
+            raise ValueError("placement needs a topology (e.g. CNAScheduler(topology=...))")
+        self.slots = SlotCache.zeros(
+            model, n_slots, cache_len,
+            topology=self.scheduler.topology if placement is not None else None,
+            policy=placement if placement is not None else "nearest_spill",
+        )
+        if self.slots.telemetry is not None:
+            self.scheduler.metrics.placement = self.slots.telemetry
+        # the index learns from where the slot cache actually puts each
+        # prefix, so it needs placement
+        if prefix_index is True:
+            prefix_index = PrefixIndex()
+        if prefix_index is not None and placement is None:
+            raise ValueError(
+                "a prefix index needs placement=... — derived homes are "
+                "learned from where the slot cache actually puts each prefix"
+            )
+        self.prefix_index = prefix_index
+        if prefix_index is not None:
+            n_domains = self.scheduler.topology.n_domains
+            if prefix_index.n_domains is None:
+                prefix_index.n_domains = n_domains
+            elif prefix_index.n_domains != n_domains:
+                raise ValueError(
+                    f"prefix index spans {prefix_index.n_domains} domains but "
+                    f"the topology has {n_domains}"
+                )
+            # bind occupancy to THIS engine's telemetry unconditionally: a
+            # warm index handed over from a retired engine must not keep
+            # reading the old engine's frozen counters
+            telemetry = self.slots.telemetry
+            prefix_index.occupancy = lambda: telemetry.per_domain_occupancy
+        # controller-coupled shedding: a saturated home domain sheds new
+        # admissions to same-group siblings before nearest_spill goes
+        # cross-group; rebound unconditionally, as the index is
+        ctl = self.scheduler.controller
+        if ctl is not None and self.slots.telemetry is not None:
+            tel = self.slots.telemetry
+            ctl.occupancy = lambda: tel.per_domain_occupancy
+            ctl.shed_topology = self.scheduler.topology
+            ctl.domain_capacity = self.slots.pools.domain_capacity
         if prefix_kv is True:
             prefix_kv = PrefixKVStore()
         self.prefix_kv = prefix_kv
@@ -139,8 +186,9 @@ class DecodeEngine:
     # -- admission -------------------------------------------------------------
     def submit(self, req: Request):
         """Queue ``req`` for admission.  Prompts that cannot fit the cache are
-        rejected here.  ``domain=None`` takes domain 0: without a prefix
-        index there is no home to derive."""
+        rejected here.  ``domain=None`` derives the home from the prefix
+        index (longest cached prefix; explicit domains remain an override),
+        or takes domain 0 without an index or on a cold one."""
         if len(req.prompt) >= self.cache_len:
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens cannot fit cache_len="
@@ -153,13 +201,34 @@ class DecodeEngine:
                 "request", req.rid, self.scheduler.now, prompt_len=len(req.prompt)
             )
         if req.domain is None:
-            req.domain = 0
+            if self.prefix_index is not None:  # implies placement
+                domain, matched = self.prefix_index.home(req.prompt)
+                req.matched_len = matched
+                self.slots.telemetry.record_derived_home(matched, len(req.prompt))
+            else:
+                domain = None
+            req.domain = 0 if domain is None else domain
         if self.tracer:
             now = self.scheduler.now
             self.tracer.span(
                 "home_derivation", req.rid, now, now,
                 domain=req.domain, matched=req.matched_len, derived=derived,
             )
+        ctl = self.scheduler.controller
+        if ctl is not None and self.slots.telemetry is not None:
+            shed = ctl.shed_home(req.domain)
+            if shed != req.domain:
+                # home saturated, a same-group sibling has headroom: re-home
+                # the admission there; the matched-prefix discount no longer
+                # applies at the new home
+                if self.tracer:
+                    now = self.scheduler.now
+                    self.tracer.span(
+                        "shed", req.rid, now, now, home=req.domain, to=shed
+                    )
+                req.domain = shed
+                req.matched_len = 0
+                self.slots.telemetry.record_shed()
         req.submit_t = self.scheduler.now
         self.scheduler.submit(req, req.domain)
 
@@ -168,14 +237,29 @@ class DecodeEngine:
         stalls (domain switch + KV migration); returns the slot."""
         slot = self.slots.claim(req.rid, req.domain)
         migration = self.slot_migration_cost * self.slots.last_distance
+        if req.matched_len and len(req.prompt):
+            # only the uncached suffix of the KV is charged for an off-home
+            # placement (the reference's model: a matched prefix is resident
+            # where the slot lands); Python ints, as sim_time is compared
+            # for equality with the reference
+            uncached = max(0, len(req.prompt) - req.matched_len)
+            migration = migration * uncached // len(req.prompt)
         stall = self.domain_switch_cost * switch_distance + migration
         self.sim_time += stall
         if self.tracer:
             now = self.scheduler.now
-            self.tracer.span(
+            sp = self.tracer.span(
                 "admit", req.rid, now, now, slot=slot, domain=req.domain,
                 switch_distance=switch_distance, stall_cycles=stall,
             )
+            if self.slots.last_distance:
+                self.tracer.span(
+                    "migrate", req.rid, now, now, parent=sp,
+                    distance=self.slots.last_distance, cycles=migration,
+                )
+        if self.prefix_index is not None:
+            # re-home: the prefix now lives where placement put it
+            self.prefix_index.record(req.prompt, self.slots.last_domain)
         self.scheduler.observe_handover(stall)
         req.admit_t = self.scheduler.now
         return slot
@@ -400,11 +484,14 @@ class DecodeEngine:
     # -- federation export -----------------------------------------------------
     def summary(self, top_k: int = 8) -> dict:
         """Compact replica-state export: live occupancy (decoding + queued)
-        against slot capacity; no prefix index, so no prefixes."""
+        against slot capacity, plus the prefix index's hottest cached
+        prefixes (empty without an index)."""
         return {
             "occupancy": len(self.active_req) + len(self.scheduler),
             "capacity": self.n_slots,
-            "prefixes": (),
+            "prefixes": tuple(self.prefix_index.summary(top_k))
+            if self.prefix_index is not None
+            else (),
         }
 
     # -- decode ----------------------------------------------------------------
@@ -447,6 +534,13 @@ class DecodeEngine:
                             seq, self.slots.extract(slot), logits[slot : slot + 1]
                         )
                         self.kv_deposits += 1
+                if self.prefix_index is not None:
+                    # the retiring slot's pool now holds KV for the full
+                    # sequence: index it before release (host token lists)
+                    self.prefix_index.record(
+                        np.concatenate([np.asarray(req.prompt), np.asarray(req.out)]),
+                        self.slots.slot_domain(slot),
+                    )
                 if self.tracer:
                     now = self.scheduler.now
                     self.tracer.end(

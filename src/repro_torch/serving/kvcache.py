@@ -1,8 +1,7 @@
 """Batched KV/recurrent cache slots for continuous batching.
 
-PyTorch counterpart of ``repro.serving.kvcache.SlotCache`` without a
-topology (NUMA-homed placement waits for its slice).  The engine owns one
-cache with a slot (decode-batch) axis, and ``pos`` is (n_slots,).  Each
+PyTorch counterpart of ``repro.serving.kvcache.SlotCache``.  The engine
+owns one cache with a slot (decode-batch) axis, and ``pos`` is (n_slots,).  Each
 leaf's batch axis and kind come from the model's ``cache_logical`` tree, as
 in the reference: stacked attention KV (L, B, S, kv, hd), unrolled KV
 (B, S, kv, hd), RG-LRU state (L?, B, W), SSD state (L?, B, H, P, N) and
@@ -17,6 +16,13 @@ the reference's rank rules give a stacked (L, B, W) state and a stacked
 Where the reference builds new arrays, this one writes the claimed lane IN
 PLACE (``copy_``), and ``extract`` returns a copy, so a stashed lane never
 aliases the live cache.
+
+Slot selection is the reference's: without a ``topology`` one heap of free
+slots (lowest-first); with one, ``repro_torch.placement`` partitions the
+slots into per-domain pools, and ``claim(owner, domain)`` places each request
+in (or nearest to) its KV/prefix home domain under the configured policy,
+charging distance-aware migration on misses and recording per-domain
+telemetry.  The bookkeeping is host-side Python: no decision reads a tensor.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 import heapq
 
 import torch
+
+from repro_torch.placement import DomainFreeLists, PlacementTelemetry, get_policy
 
 
 def _leaves(tree, is_leaf) -> list:
@@ -86,32 +94,94 @@ def _fit_into(dst: torch.Tensor, src: torch.Tensor, seq_ax: int | None) -> None:
 class SlotCache:
     """Cache tensors + slot bookkeeping."""
 
-    def __init__(self, cache: dict, logical: dict, n_slots: int):
+    def __init__(
+        self, cache: dict, logical: dict, n_slots: int, *, topology=None,
+        policy="nearest_spill", cost_model=None,
+    ):
         self.cache = cache
         self.n_slots = n_slots
         self.axes = leaf_axes(cache, logical)
         self.owner: dict[int, object] = {}
-        # placement is not ported: every claim is local (the engine charges
-        # migration stalls from this, as it does in the reference)
+        # distance/migration cost of the most recent claim (0 for a home hit
+        # or the baseline path); the engine charges stall time from these.
+        # ``last_domain`` is where the slot landed (None on the baseline
+        # path): the prefix index re-homes hot prefixes from it.
         self.last_distance = 0
-        self._free = list(range(n_slots))  # a fresh range is a valid heap
+        self.last_migration_cycles = 0
+        self.last_domain = None
+        # CostModel pricing telemetry's migration_cycles (None -> the
+        # placement layer's TWO_SOCKET default)
+        self.cost_model = cost_model
+        if topology is None:
+            self.pools = None
+            self.policy = None
+            self.telemetry = None
+            self._free = list(range(n_slots))  # a fresh range is a valid heap
+        else:
+            self.pools = DomainFreeLists(n_slots, topology)
+            self.policy = get_policy(policy)
+            self.telemetry = PlacementTelemetry(n_domains=self.pools.topology.n_domains)
+            self._free = None
 
     @property
     def n_free(self) -> int:
+        """Free-slot count: the O(1) check for the engine's admit loop."""
+        if self.pools is not None:
+            return len(self.pools)
         return len(self._free)
 
+    @property
+    def free(self) -> list[int]:
+        """Free slots, ascending (a copy: mutate through claim/release)."""
+        if self.pools is not None:
+            return self.pools.free_slots()
+        return sorted(self._free)
+
     @classmethod
-    def zeros(cls, model, n_slots: int, cache_len: int):
+    def zeros(
+        cls, model, n_slots: int, cache_len: int, *, topology=None,
+        policy="nearest_spill", cost_model=None,
+    ):
         cache = model.cache_zeros(n_slots, cache_len)
         cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=model.device)
-        return cls(cache, model.cache_logical(), n_slots)
+        return cls(
+            cache, model.cache_logical(), n_slots,
+            topology=topology, policy=policy, cost_model=cost_model,
+        )
 
     def claim(self, owner, domain: int | None = None) -> int:
-        """Claim the lowest free slot for ``owner`` (``domain`` is ignored
-        without placement, as on the reference's baseline path)."""
-        if not self._free:
-            raise IndexError("claim from an exhausted SlotCache")
-        slot = heapq.heappop(self._free)
+        """Claim a free slot for ``owner``.  ``domain`` is the request's
+        KV/prefix home; the baseline path ignores it (lowest free slot).
+        Under placement the domain is required and range-checked up front,
+        so a bad home cannot pass as domain-0 traffic in the telemetry."""
+        if self.pools is not None:
+            topo = self.pools.topology
+            if domain is None:
+                raise ValueError(
+                    "claim under placement needs the request's KV/prefix home "
+                    "domain (got domain=None); derive one (PrefixIndex.home) "
+                    "or pass it explicitly"
+                )
+            if not 0 <= domain < topo.n_domains:
+                raise ValueError(
+                    f"domain {domain} out of range for topology "
+                    f"{topo.name!r} ({topo.n_domains} domains)"
+                )
+            p = self.policy.place(self.pools, domain, self.cost_model)
+            if p is None:
+                raise IndexError("claim from an exhausted SlotCache")
+            self.telemetry.record_placement(p)
+            self.last_distance = p.distance
+            self.last_migration_cycles = p.migration_cycles
+            self.last_domain = p.slot_domain
+            slot = p.slot
+        else:
+            if not self._free:
+                raise IndexError("claim from an exhausted SlotCache")
+            slot = heapq.heappop(self._free)
+            self.last_distance = 0
+            self.last_migration_cycles = 0
+            self.last_domain = None
         self.owner[slot] = owner
         return slot
 
@@ -119,7 +189,22 @@ class SlotCache:
         self.owner.pop(slot, None)
         # a freed slot must not advertise a stale sequence
         self.cache["pos"][slot] = 0
-        heapq.heappush(self._free, slot)
+        if self.pools is not None:
+            self.telemetry.record_release(self.pools.release(slot))
+        else:
+            heapq.heappush(self._free, slot)
+
+    @property
+    def active(self) -> list[int]:
+        return sorted(self.owner)
+
+    def slot_domain(self, slot: int) -> int | None:
+        """Home domain of ``slot``'s pool (None on the baseline path)."""
+        if self.pools is None:
+            return None
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range")
+        return self.pools.slot_domain[slot]
 
     def fit_single(self, single_cache: dict) -> dict:
         """A (batch=1) cache with every KV leaf padded/trimmed to this

@@ -1,5 +1,6 @@
 """The RG-LRU scan and SSD intra-chunk kernels against their plain versions on the card,
-and prefix-KV reuse (continuation prefill, the engine's store) on the card.
+prefix-KV reuse (continuation prefill, the engine's store) on the card, and
+NUMA placement with derived homes on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so the card's machine,
@@ -34,6 +35,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_reduced_config  # noqa: E402
+from repro_torch.core.topology import pod  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import linear_scan, linear_scan_plain  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402
@@ -323,3 +325,64 @@ def test_prefix_kv_engine_on_card(cuda_device):
     assert eng.reused_positions > 0 and eng.kv_deposits == len(first) + len(follow)
     for cache, ts, logits, lg in snap:
         assert all(torch.equal(a, b) for a, b in zip(_tensors(cache), ts)) and torch.equal(logits, lg)
+
+
+@pytest.mark.cuda
+def test_placement_slot_cache_on_card(cuda_device):
+    """A placement-aware ``SlotCache`` over CUDA tensors: claims land in
+    their home pools or spill as on the CPU, an inserted lane holds its
+    prefill, and a release zeroes the slot's ``pos`` on the card and returns
+    the slot to its domain's pool."""
+    out = []
+    for device in (torch.device("cpu"), cuda_device):
+        cfg, model, params = _granite(device)
+        slots = SlotCache.zeros(model, 4, 32, topology=pod(2, 2))
+        _, single = model.prefill(params, {"tokens": np.arange(5, dtype=np.int32)[None] % cfg.vocab})
+        seen = []
+        for owner, home in enumerate((1, 1, 3, 0)):
+            slot = slots.claim(owner, home)
+            slots.insert(slot, single)
+            seen.append((slot, slots.last_domain, slots.last_distance, slots.last_migration_cycles))
+        assert slots.cache["pos"].device.type == device.type
+        assert slots.cache["pos"].tolist() == [5, 5, 5, 5] and slots.n_free == 0
+        slots.release(seen[1][0])
+        assert slots.cache["pos"].tolist()[seen[1][0]] == 0
+        assert slots.free == [seen[1][0]] and slots.slot_domain(seen[1][0]) == seen[1][1]
+        tel = slots.telemetry
+        out.append((seen, tel.placements, tel.local_placements, tel.spills, tel.releases,
+                    tel.migration_cycles, dict(tel.per_domain_occupancy)))
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_derived_homes_engine_on_card(cuda_device, capsys):
+    """``serve.py --derived-homes`` on the card prints what it prints on the
+    CPU (every number but the wall time), and a placement + index + store
+    engine on the card makes the CPU's decisions: no decision reads a
+    number the model computes."""
+    from repro_torch.launch import serve
+
+    lines = []
+    for device in ("cpu", "cuda"):
+        assert serve.main(["--device", device, "--derived-homes", "--scheduler", "cna"]) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        lines.append([f for f in line.split() if not f.startswith(("wall=", "device="))])
+    assert lines[0] == lines[1] and any(f.startswith("derived=24") for f in lines[1])
+
+    seen = []
+    for device in (torch.device("cpu"), cuda_device):
+        cfg, model, params = _granite(device)
+        eng = DecodeEngine(model, params, n_slots=4, cache_len=CONT_CACHE_LEN, batching=True,
+                           scheduler=CNAScheduler(topology=pod(2, 2)), placement="nearest_spill",
+                           prefix_index=True, prefix_kv=True)
+        rng = np.random.default_rng(9)
+        shared = [rng.integers(0, cfg.vocab, 10).astype(np.int32) for _ in range(2)]
+        for wave in range(2):
+            eng.run([Request(rid=10 * wave + i, prompt=np.concatenate(
+                [shared[i % 2], rng.integers(0, cfg.vocab, 3).astype(np.int32)]),
+                max_new=3, domain=None) for i in range(6)])
+        tel = eng.slots.telemetry
+        seen.append((eng.sim_time, eng.prefill_positions, eng.reused_positions, eng.kv_deposits,
+                     eng.prefix_kv.hits, eng.compile_counts, tel.placements, tel.spills,
+                     tel.migration_cycles, tel.derived_homes, tel.prefix_hit_tokens, tel.sheds))
+    assert seen[0] == seen[1] and seen[1][9] == 12 and seen[1][10] > 0

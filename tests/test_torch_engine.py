@@ -141,9 +141,8 @@ def test_tracer_records_a_closed_span_tree():
 
 def test_unported_options_raise():
     _, _, _, tmodel, tparams = _setup()
-    for kw in ({"placement": "nearest_spill"}, {"prefix_index": True}, {"paging": True}):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(tmodel, tparams, n_slots=2, cache_len=CACHE_LEN, **kw)
+    with pytest.raises(NotImplementedError):
+        DecodeEngine(tmodel, tparams, n_slots=2, cache_len=CACHE_LEN, paging=True)
 
 
 def test_submit_rejects_prompts_that_cannot_fit():
